@@ -3,9 +3,9 @@
 The port of ``lfinterpolator_tpu`` (JAX/Pallas) to PyTorch, with the JAX
 package's Pallas kernels rewritten by hand in CUDA C++ for Hopper (H100).
 Load a camera-grid light field, then synthesize 64 novel views along a
-trajectory by shift-and-sum weighted blending. This package covers the
-fixed-focus render; the rest of the JAX package's surface follows slice by
-slice (ROADMAP.md).
+trajectory by shift-and-sum weighted blending, at a fixed focus or all in
+focus (a per-pixel focus map from a disparity search). The rest of the JAX
+package's surface follows slice by slice (ROADMAP.md).
 
 Importing the package imports neither jax nor torch's CUDA runtime, and
 builds nothing: the kernels compile at first use (``ops/_build.py``).

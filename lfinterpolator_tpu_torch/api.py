@@ -1,22 +1,26 @@
 """High-level API: the Interpolator, on PyTorch.
 
-Port of the fixed-focus part of ``lfinterpolator_tpu/api.py``
-(``RenderResult``, ``Interpolator.__init__``/``interpolate`` for
-``focus_range == 0``, the one-shot ``interpolate``):
+Port of the single-device part of ``lfinterpolator_tpu/api.py``
+(``RenderResult``, ``Interpolator.__init__``/``interpolate``, the one-shot
+``interpolate``):
 
     interp = Interpolator("/data/scene")            # load + upload once
     result = interp.interpolate("0,0,1,1", method="TEN", focus=0.2)
     result.save("out/")                             # 00.png..63.png
+    result = interp.interpolate("0,0,1,1", focus=0.1, focus_range=0.3)
+    result.save("out/")                             # + map0.png, map1.png
 
 The light field is uploaded once, as a planar u8 stack, at construction.
-Each render computes the fp16-quantized weight matrix and the integer
-per-image shifts on the host (``state.render_params``) and runs the
-pipeline on the Interpolator's device. ``device="cuda"`` without
-a CUDA device raises; nothing runs on the CPU instead.
+Each render computes its host arrays (``state.render_params`` for a
+fixed-focus render; ``state.allfocus_params`` -- weights, offsets, focus
+views and the focus tables -- for an all-in-focus one) and runs the
+pipeline on the Interpolator's device. ``device="cuda"`` without a CUDA
+device raises; nothing runs on the CPU instead.
 
-Not ported yet (ROADMAP.md): all-in-focus renders (``focus_range > 0``,
-slice 2), quilts (slice 3), batched trajectories and view-batched renders
-for outputs larger than device memory (slice 4), meshes (slice 5).
+Not ported yet (ROADMAP.md): the coarse-to-fine estimate
+(``focus_pyramid``, slice 2b), quilts (slice 3), batched trajectories,
+the capacity plan with its view-batched and row-block arms for renders
+larger than device memory (slice 4), meshes (slice 5).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ class RenderResult:
     """Output of one interpolate() call."""
 
     views: np.ndarray  # [V, H, W, 3] uint8
-    maps: np.ndarray | None  # always None until all-in-focus is ported
+    maps: np.ndarray | None  # [2, H, W] uint8 raw, filtered (focus_range > 0)
     run_times_s: list[float]  # per timed repetition (empty if not benchmarked)
     config: RenderConfig
 
@@ -59,10 +63,10 @@ class RenderResult:
         return v * h * w / avg / 1e6
 
     def save(self, path: str, *, progress: bool = True) -> list[str]:
-        return write_views(path, self.views, progress=progress)
+        return write_views(path, self.views, maps=self.maps, progress=progress)
 
 
-def _not_ported(what: str, slice_no: int) -> NotImplementedError:
+def _not_ported(what: str, slice_no: int | str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not yet ported to lfinterpolator_tpu_torch "
         f"(ROADMAP slice {slice_no})"
@@ -113,8 +117,12 @@ class Interpolator:
         # One host->device upload of the planar RGB stack (api.py:239-260).
         self.images = state.upload_images(self.lf.images, self.device)
 
-    def _check_memory(self, v: int, method_key: str) -> None:
-        """Raise before allocating when a render cannot fit the device."""
+    def _check_memory(self, v: int, method_key: str, focus_views: int = 0) -> None:
+        """Raise before allocating when a render cannot fit the device.
+
+        `focus_views` > 0 sizes an all-in-focus render: beside the output
+        it holds the K focus views, gathered and in the estimate kernel's
+        RGBx layout, and the two maps."""
         if self.device.type != "cuda":
             return
         g, c, h, w = self.images.shape
@@ -122,7 +130,9 @@ class Interpolator:
         # output + its [V, H, W, C] copy for the download, + the plain
         # path's temporaries
         need = 2 * out
-        if method_key == "STD":
+        if focus_views:
+            need += focus_views * (c + 4) * h * w + 2 * h * w
+        elif method_key == "STD":
             need += blend_torch.temp_bytes(g, v, c, h, w)
         free = _free_bytes(self.device)
         if need > free:
@@ -147,9 +157,13 @@ class Interpolator:
     ) -> RenderResult:
         """Synthesize the novel-view set for one trajectory.
 
-        Mirrors ``lfinterpolator_tpu.api.Interpolator.interpolate`` for
-        ``focus_range == 0``; `benchmark_runs > 0` additionally times that
-        many repetitions of the render step on the device.
+        Mirrors ``lfinterpolator_tpu.api.Interpolator.interpolate`` on one
+        device; `benchmark_runs > 0` additionally times that many
+        repetitions of the render step on the device (for an all-in-focus
+        render: estimate, filter and blend). `focus_range > 0` renders all
+        in focus and returns the maps; the render must fit the device
+        (the capacity plan, view-batched arm, row blocks and mesh of
+        ``api.py:364-526, 641-672`` come with ROADMAP slice 4).
         """
         cfg = dataclasses.replace(
             self.config,
@@ -160,25 +174,46 @@ class Interpolator:
             aspect=(aspect if aspect is not None else self.config.aspect),
         )
         cfg.validate()
-        if cfg.uses_focus_map:
-            raise _not_ported("All-in-focus rendering (focus_range > 0)", 2)
         method_key = "TEN" if cfg.method in ("TEN", "TEN_WM") else "STD"
-
         lf = self.lf
-        wm, fo = state.render_params(
-            trajectory, cols=lf.cols, rows=lf.rows, height=lf.height,
-            width=lf.width, focus=cfg.focus, effect=cfg.effect,
-            aspect=cfg.aspect, views=cfg.view_count,
-        )
-        weights, shifts = state.upload_params(wm, fo, self.device)
-        self._check_memory(cfg.view_count, method_key)
-
-        def step() -> torch.Tensor:
-            return pipeline.render_fixed_focus(
-                self.images, weights, shifts, method=method_key
+        if cfg.uses_focus_map:
+            if cfg.focus_pyramid:
+                raise _not_ported(
+                    "Coarse-to-fine focus estimation (focus_pyramid)", "2b"
+                )
+            params = state.allfocus_params(
+                trajectory, cols=lf.cols, rows=lf.rows, height=lf.height,
+                width=lf.width, config=cfg,
             )
+            weights, offsets, ids, tables = state.upload_allfocus(
+                params, self.device
+            )
+            self._check_memory(cfg.view_count, method_key, len(params.focus_ids))
+            if progress:
+                print("Estimating focus map...")
 
-        views = step()
+            def step() -> tuple[torch.Tensor, torch.Tensor]:
+                return pipeline.render_all_focus(
+                    self.images, weights, offsets, ids, tables,
+                    method=method_key, radius=params.radius,
+                    filter_radius=params.filter_radius,
+                    exact_taps=cfg.exact_focus_taps,
+                )
+        else:
+            wm, fo = state.render_params(
+                trajectory, cols=lf.cols, rows=lf.rows, height=lf.height,
+                width=lf.width, focus=cfg.focus, effect=cfg.effect,
+                aspect=cfg.aspect, views=cfg.view_count,
+            )
+            weights, shifts = state.upload_params(wm, fo, self.device)
+            self._check_memory(cfg.view_count, method_key)
+
+            def step() -> tuple[torch.Tensor, None]:
+                return pipeline.render_fixed_focus(
+                    self.images, weights, shifts, method=method_key
+                ), None
+
+        views, maps = step()
         run_times: list[float] = []
         if benchmark_runs > 0:
             if progress:
@@ -193,8 +228,9 @@ class Interpolator:
                     f"{bench.avg_ms:.3f} ms ({bench.device})"
                 )
         views_np = blend_torch.from_planar(views).cpu().numpy()
+        maps_np = None if maps is None else maps.cpu().numpy()
         return RenderResult(
-            views=views_np, maps=None, run_times_s=run_times, config=cfg
+            views=views_np, maps=maps_np, run_times_s=run_times, config=cfg
         )
 
     def render_quilt(self, *args, **kwargs):

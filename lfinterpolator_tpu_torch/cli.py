@@ -1,13 +1,16 @@
 """Command-line interface of the port: the reference's flag surface.
 
 Same flags as ``lfinterpolator_tpu.cli`` (its ``build_parser`` is reused),
-plus ``--device`` (default ``cuda``). Runs the fixed-focus render:
+plus ``--device`` (default ``cuda``). Runs the fixed-focus render, and with
+``-r > 0`` the all-in-focus one (``--focus-views``, ``--fast-focus``),
+which also writes ``map0.png``/``map1.png``:
 
     python -m lfinterpolator_tpu_torch.cli -i scene/ -o out/ -t 0,0,1,1 -m TEN -f 0.1
+    python -m lfinterpolator_tpu_torch.cli -i scene/ -o out/ -t 0,0,1,1 -m TEN -f 0.1 -r 0.3
 
-Flags of parts not yet ported (``-r > 0`` with ``--fast-focus`` /
-``--focus-pyramid``, the ``--quilt*`` family) exit 1 with a one-line
-message naming the ROADMAP slice that brings them.
+Flags of parts not yet ported (``--focus-pyramid`` with ``-r > 0``, the
+``--quilt*`` family) exit 1 with a one-line message naming the ROADMAP
+slice that brings them.
 """
 
 from __future__ import annotations
@@ -29,8 +32,10 @@ Example: lfi-interpolate-torch -i /MyAmazingMachine/thoseImages -t 0.0,0.0,1.0,1
      TEN_WM (alias TEN) - hand-written Hopper kernel
 The following arguments are normalized offsets of the images in shift & sum
 -f - focusing value (default=0)
--r - focusing range: all-in-focus rendering is not yet ported (ROADMAP slice 2)
+-r - focusing range (will be added to the focusing value) - will produce all-focused result if used
 -b - number of timed benchmark repetitions of the render step (default=0)
+--focus-views - views used by the focus search (default=32)
+--fast-focus - evaluate the focus search's tap truncation at each tap, not at the center pixel
 --device - torch device to render on: cuda (default) or cpu (plain PyTorch path)
 """
 
@@ -44,11 +49,9 @@ def build_parser():
 
 def _not_ported(args) -> str | None:
     """The one-line message for a requested part not yet ported, or None."""
-    if args.range > 0:
-        extra = [f for f, on in (("--fast-focus", args.fast_focus),
-                                 ("--focus-pyramid", args.focus_pyramid)) if on]
-        flags = "-r > 0" + "".join(f", {f}" for f in extra)
-        return f"All-in-focus rendering ({flags}) is not yet ported (ROADMAP slice 2)"
+    if args.range > 0 and args.focus_pyramid:
+        return ("Coarse-to-fine focus estimation (--focus-pyramid) is not yet "
+                "ported (ROADMAP slice 2b)")
     if args.quilt or args.quilt_only or args.quilt_tile or args.quilt_reference:
         return "Quilt output (--quilt*) is not yet ported (ROADMAP slice 3)"
     return None
@@ -71,7 +74,9 @@ def main(argv: list[str] | None = None) -> int:
     try:
         # Validate everything BEFORE the (slow) grid load + device upload.
         config = RenderConfig(
-            method=args.method, effect=args.effect, aspect=args.aspect
+            method=args.method, effect=args.effect, aspect=args.aspect,
+            focus_map_views=args.focus_views,
+            exact_focus_taps=not args.fast_focus,
         )
         config.validate()
         geometry.parse_trajectory(args.trajectory, (2, 2))  # format check
@@ -94,6 +99,7 @@ def main(argv: list[str] | None = None) -> int:
         result = interp.interpolate(
             args.trajectory,
             focus=args.focus,
+            focus_range=args.range,
             benchmark_runs=args.bench_runs,
             progress=progress,
         )

@@ -28,14 +28,13 @@
 // and its 32 sums in registers. The tensor-core version (mma/wgmma on
 // fp16 operands, f32 accumulation) and TMA staging come later.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lfi_common.cuh"
 
 namespace {
 
-constexpr int kTileX = 128;     // threads per block = pixels per row segment
-constexpr int kViewChunk = 32;  // views accumulated in registers per pass
-constexpr int kMaxGrid = 256;   // largest G (images) the kernel takes
+using lfi::kMaxGrid;
+using lfi::kTileX;
+using lfi::kViewChunk;
 
 __global__ void __launch_bounds__(kTileX)
 shift_blend_kernel(const uint8_t* __restrict__ img,   // [G, C, H, W]
@@ -54,45 +53,18 @@ shift_blend_kernel(const uint8_t* __restrict__ img,   // [G, C, H, W]
   const int y = (int)(row - (int64_t)c * H);
 
   for (int g = threadIdx.x; g < G; g += kTileX) {
-    const int sy = y + shifts[2 * g + 1];
-    src_row[g] = sy < 0 ? 0 : (sy > H - 1 ? H - 1 : sy);
+    src_row[g] = lfi::clamp_index(y + shifts[2 * g + 1], H);
     dx_s[g] = shifts[2 * g];
   }
 
   const int64_t plane = (int64_t)H * W;
-  for (int v0 = 0; v0 < V; v0 += kViewChunk) {
-    const int vn = V - v0 < kViewChunk ? V - v0 : kViewChunk;
-    __syncthreads();  // previous chunk done with w_s (and src_row ready)
-    for (int i = threadIdx.x; i < kViewChunk * G; i += kTileX) {
-      const int vv = i / G;
-      w_s[i] = vv < vn ? w[(int64_t)(v0 + vv) * G + (i - vv * G)] : 0.0f;
-    }
-    __syncthreads();
-    if (x < W) {
-      float acc[kViewChunk];
-#pragma unroll
-      for (int vv = 0; vv < kViewChunk; ++vv) acc[vv] = 0.0f;
-      for (int g = 0; g < G; ++g) {
-        int sx = x + dx_s[g];
-        sx = sx < 0 ? 0 : (sx > W - 1 ? W - 1 : sx);
-        const float p = (float)img[((int64_t)g * C + c) * plane +
-                                   (int64_t)src_row[g] * W + sx];
-#pragma unroll
-        for (int vv = 0; vv < kViewChunk; ++vv)
-          acc[vv] = __fadd_rn(acc[vv], __fmul_rn(w_s[vv * G + g], p));
-      }
-      uint8_t* dst = out + ((int64_t)v0 * C + c) * plane + (int64_t)y * W + x;
-      const int64_t view_stride = (int64_t)C * plane;
-#pragma unroll
-      for (int vv = 0; vv < kViewChunk; ++vv) {
-        if (vv < vn) {
-          int q = __float2int_rn(acc[vv]);
-          q = q < 0 ? 0 : (q > 255 ? 255 : q);
-          dst[vv * view_stride] = (uint8_t)q;
-        }
-      }
-    }
-  }
+  lfi::blend_views(w, G, V, x < W, w_s,
+                   out + (int64_t)c * plane + (int64_t)y * W + x,
+                   (int64_t)C * plane, [&](int g) {
+                     const int sx = lfi::clamp_index(x + dx_s[g], W);
+                     return (float)img[((int64_t)g * C + c) * plane +
+                                       (int64_t)src_row[g] * W + sx];
+                   });
 }
 
 }  // namespace

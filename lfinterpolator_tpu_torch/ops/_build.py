@@ -1,15 +1,17 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``lfinterpolator_tpu_torch/csrc/*.cu`` expose a plain C
-interface. At first use they are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into ``build/kernels/libshift_blend.so`` at the root of the
-checkout and loaded with ``ctypes``. Nothing here runs at import time, and
-nothing is taken from outside the checkout but ``nvcc`` itself (found on
-``PATH``, else under ``$CUDA_HOME`` or ``/usr/local/cuda``).
+interface. At first use each is compiled with ``nvcc`` for Hopper
+(``sm_90a``) into an object, all sources at once in parallel processes,
+and the objects are linked into ``build/kernels/liblfi_kernels.so`` at the
+root of the checkout, loaded with ``ctypes``. Nothing here runs at import
+time, and nothing is taken from outside the checkout but ``nvcc`` itself
+(found on ``PATH``, else under ``$CUDA_HOME`` or ``/usr/local/cuda``).
 
-A library newer than every source is reused, so a second process (the CLI
-after a script that already built) does not compile again. A failed build
-raises with nvcc's own stderr.
+A library newer than every source and header is reused, so a second
+process (the CLI after a script that already built) does not compile
+again. A failed build raises with nvcc's own stderr and leaves nothing
+behind.
 """
 
 from __future__ import annotations
@@ -19,22 +21,24 @@ import glob
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-LIB_PATH = os.path.join(BUILD_DIR, "libshift_blend.so")
+LIB_PATH = os.path.join(BUILD_DIR, "liblfi_kernels.so")
 
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills into the build log
 ]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-#: nvcc's output of the last build in this process ("" if none ran).
+#: nvcc's output of the last build in this process ("" if none ran): one
+#: ptxas report (registers, shared memory, spills) for every kernel.
 build_log: str = ""
 
 
@@ -59,7 +63,27 @@ def _stale(srcs: list[str]) -> bool:
     if not os.path.exists(LIB_PATH):
         return True
     built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in srcs)
+    headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    return any(os.path.getmtime(s) > built for s in srcs + headers)
+
+
+def _run(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel; raise on the first that fails.
+
+    Returns each command's stderr + stdout."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+        for cmd in cmds
+    ]
+    outs = [p.communicate() for p in procs]
+    for cmd, proc, (out, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"{err}{out}"
+            )
+    return [err + out for out, err in outs]
 
 
 def build(force: bool = False) -> str:
@@ -71,20 +95,22 @@ def build(force: bool = False) -> str:
     if not force and not _stale(srcs):
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # Build to a private name, then rename: a concurrent process never
-    # loads a half-written library.
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}"
-        )
-    os.replace(tmp, LIB_PATH)
-    build_log = proc.stderr + proc.stdout
+    nvcc = find_nvcc()
+    # Objects and the library are built in a private directory, then the
+    # library is renamed into place: a concurrent process never loads a
+    # half-written library.
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [
+            os.path.join(work, os.path.basename(s)[: -len(".cu")] + ".o")
+            for s in srcs
+        ]
+        logs = _run([
+            [nvcc, *COMPILE_FLAGS, "-c", "-o", o, s] for s, o in zip(srcs, objs)
+        ])
+        tmp = os.path.join(work, os.path.basename(LIB_PATH))
+        logs += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, LIB_PATH)
+    build_log = "".join(logs)
     return LIB_PATH
 
 
@@ -95,12 +121,23 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.lfi_shift_blend.argtypes = [
-                ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr,
-            ]
-            lib.lfi_shift_blend.restype = i32
-            lib.lfi_shift_blend_max_grid.argtypes = []
-            lib.lfi_shift_blend_max_grid.restype = i32
+            signatures = {
+                # (img, w, shifts, out, G, C, H, W, V, stream)
+                "lfi_shift_blend": [ptr] * 4 + [i32] * 5 + [ptr],
+                # (img, w, offs, map, decode, out, G, C, H, W, V, stream)
+                "lfi_allfocus_blend": [ptr] * 6 + [i32] * 5 + [ptr],
+                # (views, offs, cands, cand_bytes, out, K, H, W, S, rx, ry,
+                #  exact, stream)
+                "lfi_focus_estimate": [ptr] * 5 + [i32] * 7 + [ptr],
+                "lfi_shift_blend_max_grid": [],
+                "lfi_allfocus_blend_max_grid": [],
+                "lfi_focus_estimate_max_views": [],
+                "lfi_focus_estimate_max_steps": [],
+            }
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = i32
             lib.lfi_cuda_error_string.argtypes = [i32]
             lib.lfi_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,17 +1,24 @@
-"""Plain PyTorch blend path (the "STD" method).
+"""Plain PyTorch blend path (the "STD" method of the fixed-focus render).
 
-Port of the fixed-focus part of ``lfinterpolator_tpu/ops/blend_xla.py``
+Port of ``lfinterpolator_tpu/ops/blend_xla.py``: the fixed-focus part
 (``to_planar``/``from_planar``, ``shift_stack``, ``blend``,
-``render_fixed``):
+``render_fixed``)
 
     views[v, c, y, x] = u8(clip(rne(sum_g W[v, g] *
                             img[g, c, clamp(y+dy_g), clamp(x+dx_g)])))
 
-The clamped shift is one index gather (the JAX package built it from an
-edge pad and a dynamic slice, because gathers are slow on a TPU); the blend
-is one f32 ``torch.matmul`` of ``[V, G] @ [G, C*H*W]``. These functions are
-also the plain version of the hand-written kernel in ``ops/shift_blend.py``.
-Image layout is planar ``[G, C, H, W]`` uint8.
+and the all-in-focus part (``allfocus_selected``, ``render_allfocus``),
+where each pixel's shift comes from its focus value f = decode[map[y, x]]:
+
+    img[g, c, clamp(trunc(y + f*oy_g)), clamp(trunc(x + f*ox_g))]
+
+Both shifts are one index gather: the JAX package built them from an edge
+pad and dynamic slices, and the all-focus select as a scan over the map's
+byte levels with a presence skip, because gathers are slow on a TPU
+(``blend_xla.py:345-353``). The blend is one f32 ``torch.matmul`` of
+``[V, G] @ [G, C*H*W]``. These functions are also the plain versions of
+the hand-written kernels in ``ops/shift_blend.py`` and
+``ops/allfocus_blend.py``. Image layout is planar ``[G, C, H, W]`` uint8.
 """
 
 from __future__ import annotations
@@ -76,6 +83,44 @@ def render_fixed(
 ) -> torch.Tensor:
     """Fixed-focus render: shift + blend -> [V, C, H, W] uint8."""
     return blend(shift_stack(images, focused_offsets), weights)
+
+
+def allfocus_selected(
+    images: torch.Tensor,  # [G, C, H, W] uint8
+    offsets: torch.Tensor,  # [G, 2] float32 (x, y)
+    fmap: torch.Tensor,  # [H, W] uint8 focus map
+    decode: torch.Tensor,  # [256] float32 focus value of each byte
+) -> torch.Tensor:
+    """Every image gathered at its pixel's focus -> [G, C, H, W] uint8.
+
+    The coordinate is the oracle's ``trunc(f32(q) + f32(f*o))``
+    (``reference.blend_allfocus``): a rounded product, then a rounded add
+    (eager torch rounds each op), truncated toward zero, clamped. One image
+    at a time, so the temporaries stay [H, W].
+    """
+    g, c, h, w = images.shape
+    dev = images.device
+    f = decode.to(dev)[fmap.to(torch.int64)]  # [H, W] float32
+    ys = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xs = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    off = offsets.to(device=dev, dtype=torch.float32)
+    out = torch.empty_like(images)
+    for i in range(g):
+        cy = torch.trunc(ys + f * off[i, 1]).clamp_(0, h - 1).to(torch.int64)
+        cx = torch.trunc(xs + f * off[i, 0]).clamp_(0, w - 1).to(torch.int64)
+        out[i] = images[i][:, cy, cx]
+    return out
+
+
+def render_allfocus(
+    images: torch.Tensor,  # [G, C, H, W] uint8
+    weights: torch.Tensor,  # [V, G] float32 (fp16-quantized for parity)
+    offsets: torch.Tensor,  # [G, 2] float32 (x, y)
+    fmap: torch.Tensor,  # [H, W] uint8 focus map
+    decode: torch.Tensor,  # [256] float32
+) -> torch.Tensor:
+    """All-in-focus blend: per-pixel-focus select + blend -> [V, C, H, W] uint8."""
+    return blend(allfocus_selected(images, offsets, fmap, decode), weights)
 
 
 def temp_bytes(g: int, v: int, c: int, h: int, w: int) -> int:

@@ -42,14 +42,21 @@ def test_package_imports_no_jax_and_builds_nothing(tmp_path):
         from lfinterpolator_tpu_torch.api import Interpolator
         from lfinterpolator_tpu_torch.io import LightField
         from lfinterpolator_tpu_torch.models import pipeline
-        from lfinterpolator_tpu_torch.ops import _build, blend_torch, shift_blend
+        from lfinterpolator_tpu_torch.ops import (
+            _build, allfocus_blend, blend_torch, focus_estimate, focus_torch,
+            shift_blend)
         from lfinterpolator_tpu_torch.utils import profiling
         assert pkg.Interpolator is Interpolator
         rng = np.random.default_rng(0)
         lf = LightField(rng.integers(0, 256, (4, 8, 12, 4), dtype=np.uint8), 2, 2)
-        res = Interpolator(lf, device="cpu", progress=False).interpolate(
-            "0,0,1,1", focus=0.5, method="TEN", progress=False)
+        interp = Interpolator(lf, device="cpu", progress=False,
+                              config=pkg.RenderConfig(focus_map_views=4))
+        res = interp.interpolate("0,0,1,1", focus=0.5, method="TEN", progress=False)
         assert res.views.shape == (64, 8, 12, 3)
+        for method in ("TEN", "STD"):
+            res = interp.interpolate("0,0,1,1", focus=0.1, focus_range=0.3,
+                                     method=method, progress=False)
+            assert res.views.shape == (64, 8, 12, 3) and res.maps.shape == (2, 8, 12)
         bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))]
         assert not bad, bad
         print("OK")
@@ -94,18 +101,28 @@ def test_build_command_targets_hopper_from_repo_sources(tmp_path, monkeypatch):
     args_file = tmp_path / "args"
     nvcc = _fake_nvcc(
         str(tmp_path),
-        f'echo "$@" > {args_file}; prev=""; '
+        f'echo "$@" >> {args_file}; prev=""; '
         'for a; do [ "$prev" = "-o" ] && touch "$a"; prev=$a; done; exit 0',
     )
     monkeypatch.setattr(_build, "find_nvcc", lambda: nvcc)
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "kernels"))
     monkeypatch.setattr(_build, "LIB_PATH", str(tmp_path / "kernels" / "lib.so"))
     assert _build.build(force=True) == str(tmp_path / "kernels" / "lib.so")
-    args = args_file.read_text().split()
-    assert "arch=compute_90a,code=sm_90a" in args and "-shared" in args
-    srcs = [a for a in args if a.endswith(".cu")]
-    assert srcs and all(s.startswith(os.path.join(ROOT, "lfinterpolator_tpu_torch", "csrc"))
-                        for s in srcs)
+    calls = [line.split() for line in args_file.read_text().splitlines()]
+    # one compile per source, then one link of their objects
+    compiles, link = calls[:-1], calls[-1]
+    assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
+    assert all("-c" in c and "-v" in c for c in compiles) and "-shared" in link
+    srcs = [a for c in compiles for a in c if a.endswith(".cu")]
+    assert sorted(srcs) == _build.sources() and len(srcs) == len(compiles)
+    assert all(s.startswith(os.path.join(ROOT, "lfinterpolator_tpu_torch", "csrc"))
+               for s in srcs)
+    assert {"shift_blend.cu", "allfocus_blend.cu", "focus_estimate.cu"} <= {
+        os.path.basename(s) for s in srcs}
+    # the compiles run in parallel, so they log in any order
+    assert sorted(a for a in link if a.endswith(".o")) == sorted(
+        a for c in compiles for i, a in enumerate(c) if c[i - 1] == "-o")
+    assert os.listdir(tmp_path / "kernels") == ["lib.so"]  # no objects left
     # a library newer than every source is reused without running nvcc
     args_file.unlink()
     assert _build.build() == _build.LIB_PATH and not args_file.exists()

@@ -118,9 +118,10 @@ def test_cli_matches_jax_cli(scene_dir, small_lf, tmp_path, capsys):
         ({"-m": "WHAT"}, "interpolation method"),
         ({"-t": "0,0,1"}, "4 comma-separated values"),
         ({"-i": "/nonexistent/scene"}, "does not exist"),
-        ({"-r": "0.3"}, "not yet ported (ROADMAP slice 2)"),
+        ({"-r": "0.3", "--focus-pyramid": None}, "not yet ported (ROADMAP slice 2b)"),
         ({"--quilt": None}, "not yet ported (ROADMAP slice 3)"),
-        ({"-r": "0.3", "--fast-focus": None}, "--fast-focus) is not yet ported"),
+        # 16 grid images cannot feed the default 32 focus views
+        ({"-r": "0.3", "--fast-focus": None}, "needs at least 32 grid images"),
     ],
     ids=["method", "trajectory", "missing_dir", "range", "quilt", "fast_focus"],
 )
@@ -156,8 +157,8 @@ def test_to_device_state_roundtrip(small_lf):
 def test_not_ported_parts_raise(small_lf):
     images, (cols, rows) = small_lf
     interp = Interpolator(LightField(images, cols, rows), device="cpu",
-                          progress=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 2"):
+                          config=RenderConfig(focus_pyramid=True), progress=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 2b"):
         interp.interpolate("0,0,1,1", focus_range=0.3, progress=False)
     with pytest.raises(NotImplementedError, match="ROADMAP slice 3"):
         interp.render_quilt("0,0,1,1")
