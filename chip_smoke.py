@@ -2,12 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's fixed-focus and all-in-focus renders
-(lfinterpolator_tpu_torch) at the headline size -- an 8x8 grid of
-1080x1920 images, 64 views; all in focus with K = 32 focus views, 32
-candidates, stencil radius (20, 10) -- through the kernel wrappers, the
-Interpolator API and the CLI. Phases, in order; any failure raises and the
-script exits non-zero:
+Drives the port's fixed-focus, all-in-focus (exact and coarse-to-fine)
+and quilt renders (lfinterpolator_tpu_torch) at the headline size -- an
+8x8 grid of 1080x1920 images, 64 views; all in focus with K = 32 focus
+views, 32 candidates, stencil radius (20, 10); quilts of 5x9 tiles --
+through the kernel wrappers, the Interpolator API and the CLI. Phases, in
+order; any failure raises and the script exits non-zero:
 
   1. card name and power limit (nvidia-smi), torch/CUDA versions, codec;
   2. build the CUDA kernels from lfinterpolator_tpu_torch/csrc/ (one nvcc
@@ -36,7 +36,24 @@ script exits non-zero:
      pipeline on the same tensors, map0 not constant;
  11. the all-in-focus CLI (-r 0.3) at full size: 64 PNGs, map0.png and
      map1.png that decode equal to phase 10's TEN render;
- 12. the kernels line, then the last line: {"ok": true, "device": {...}}.
+ 12. the presence-predicated estimate against its plain version at full
+     size, with a seeded random presence table of density ~0.5
+     (torch.equal), timed beside the exact sweep;
+ 13. the coarse-to-fine estimate end to end against its plain version at
+     full size on a three-plane scene (torch.equal): presence density,
+     agreement with the exact sweep, and both timed;
+ 14. the pyramid through the Interpolator (--focus-pyramid, TEN): launches
+     counted, views and maps equal to the plain pipeline;
+ 15. the quilt kernel against its plain version at full size
+     (torch.equal), timed beside shift_blend;
+ 16. the quilt tile copy against its plain version at full size
+     (torch.equal), timed;
+ 17. render_quilt, fused (TEN) and two-stage (STD), each timed and its
+     launches counted: the quilts equal each other and the montage of the
+     rendered views;
+ 18. the CLI with --quilt-only and --quilt at a quarter of the resolution,
+     and with -r 0.3 --focus-pyramid at half: PNGs equal to the API's;
+ 19. the kernels line, then the last line: {"ok": true, "device": {...}}.
 
 Exits 1 at once when no CUDA device is present. Needs one GPU, no network.
 Imports only the port (lfinterpolator_tpu_torch), never jax.
@@ -234,17 +251,28 @@ def phase5_api(torch, np, lf, smi) -> tuple:
     return ten, std, launches
 
 
-def run_cli(np, tag, images, flags, views, maps=None) -> None:
-    """Write `images` ([G, h, w, 4] u8, the COLSxROWS grid) as PNGs, run the
-    CLI on them with `flags` in a subprocess, and check that its PNGs
-    decode equal to `views` (and `maps`, as map0.png/map1.png)."""
+def view_files(np, views, maps=None) -> dict:
+    """The CLI's files of a render: 00.png.. and map0.png/map1.png, as the
+    [h, w, 3] arrays they must decode to."""
+    want = {f"{i:02d}.png": views[i] for i in range(len(views))}
+    if maps is not None:
+        want.update({f"map{i}.png": np.repeat(maps[i][..., None], 3, axis=-1)
+                     for i in range(2)})
+    return want
+
+
+def run_cli(np, tag, images, runs) -> None:
+    """Write `images` ([G, h, w, 4] u8, the COLSxROWS grid) as PNGs once, then
+    for each (flags, want) of `runs` run the CLI on them with `flags` in a
+    subprocess and check that it wrote exactly the files of `want` (name ->
+    [h, w, 3] u8) and that they decode equal to them."""
     from concurrent.futures import ThreadPoolExecutor
 
     from lfinterpolator_tpu_torch import io
 
     work = os.path.join(ROOT, "build", "smoke")
     shutil.rmtree(work, ignore_errors=True)
-    scene, out = os.path.join(work, "scene"), os.path.join(work, "out")
+    scene = os.path.join(work, "scene")
     os.makedirs(scene)
     h, w = images.shape[1:3]
     t0 = time.perf_counter()
@@ -257,26 +285,27 @@ def run_cli(np, tag, images, flags, views, maps=None) -> None:
         list(ex.map(write, range(COLS * ROWS)))
     log(f"[{tag}] wrote the {COLS}x{ROWS} grid at {w}x{h} as PNGs "
         f"({io.codec_name()} codec) in {time.perf_counter() - t0:.1f} s")
-    cmd = [sys.executable, "-m", "lfinterpolator_tpu_torch.cli", "-i", scene,
-           "-o", out, "-t", TRAJECTORY, *flags, "--json"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"CLI exit {proc.returncode}: {proc.stderr[-4000:]}")
-    summary = json.loads(proc.stdout.strip().splitlines()[-1])
-    log(f"[{tag}] CLI {' '.join(flags)} in {time.perf_counter() - t0:.1f} s: {summary}")
-    want = {f"{i:02d}.png": views[i] for i in range(VIEWS)}
-    if maps is not None:
-        want.update({f"map{i}.png": np.repeat(maps[i][..., None], 3, axis=-1)
-                     for i in range(2)})
-    names = sorted(n for n in os.listdir(out) if n.endswith(".png"))
-    if names != sorted(want) or summary["files_written"] != len(want):
-        raise AssertionError(f"CLI wrote {names[:4]}... ({len(names)} files)")
-    for name in names:
-        back = io.decode(os.path.join(out, name))
-        if not np.array_equal(back[..., :3], want[name]) or (back[..., 3] != 255).any():
-            raise AssertionError(f"CLI file {name} != the API render")
-    log(f"[{tag}] {len(names)} PNGs decode equal to the API render")
+    for n_run, (flags, want) in enumerate(runs):
+        out = os.path.join(work, f"out{n_run}")
+        cmd = [sys.executable, "-m", "lfinterpolator_tpu_torch.cli", "-i", scene,
+               "-o", out, "-t", TRAJECTORY, *flags, "--json"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI exit {proc.returncode}: {proc.stderr[-4000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"[{tag}] CLI {' '.join(flags)} in {time.perf_counter() - t0:.1f} s: "
+            f"{summary}")
+        names = sorted(n for n in os.listdir(out) if n.endswith(".png"))
+        if names != sorted(want) or summary["files_written"] != len(want):
+            raise AssertionError(f"CLI wrote {names[:4]}... ({len(names)} files)")
+        for name in names:
+            back = io.decode(os.path.join(out, name))
+            if (not np.array_equal(back[..., :3], want[name])
+                    or (back[..., 3] != 255).any()):
+                raise AssertionError(f"CLI file {name} != the API render")
+        log(f"[{tag}] {len(names)} PNGs decode equal to the API render")
     shutil.rmtree(work, ignore_errors=True)
 
 
@@ -290,16 +319,16 @@ def phase6_cli(torch, np, lf) -> None:
     ten = Interpolator(small, device="cuda", progress=False).interpolate(
         TRAJECTORY, focus=0.1, method="TEN", progress=False)
     torch.cuda.empty_cache()
-    run_cli(np, 6, small.images, ["-m", "TEN", "-f", "0.1"], ten.views)
+    run_cli(np, 6, small.images, [(["-m", "TEN", "-f", "0.1"], view_files(np, ten.views))])
 
 
 def allfocus_setup(focus, focus_range, cols, rows, h, w, exact=True,
-                   focus_views=32):
+                   focus_views=32, pyramid=False):
     """An all-focus render's host params and its device tensors."""
     from lfinterpolator_tpu_torch import RenderConfig, state
 
     cfg = RenderConfig(focus=focus, focus_range=focus_range, exact_focus_taps=exact,
-                       focus_map_views=focus_views)
+                       focus_map_views=focus_views, focus_pyramid=pyramid)
     p = state.allfocus_params(TRAJECTORY, cols=cols, rows=rows, height=h,
                               width=w, config=cfg)
     return p, *state.upload_allfocus(p, "cuda")
@@ -499,6 +528,280 @@ def phase10_allfocus_api(torch, np, lf, smi) -> tuple:
     return results["TEN"], launches
 
 
+def check_equal(torch, name, got, want) -> int:
+    """Raise unless the kernel's output `got` equals the plain version's
+    `want`; -> the max abs difference (0)."""
+    torch.cuda.synchronize()
+    err = int((got.int() - want.int()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} != plain version: "
+                             f"{int((got != want).sum())} bytes differ, max {err}")
+    return err
+
+
+def presence_density(torch, pres, sc: int, steps: int) -> str:
+    """The share of (block, candidate) pairs a presence table searches, and
+    the share of blocks that search every candidate."""
+    bits = (pres[..., None] >> torch.arange(sc, device=pres.device, dtype=torch.int32)) & 1
+    per_block = bits.reshape(pres.shape[0], pres.shape[1], -1).sum(-1)
+    return (f"{float(bits.sum()) / (pres.shape[0] * pres.shape[1] * steps):.4f} "
+            f"({float((per_block == steps).float().mean()):.4f} of "
+            f"{pres.shape[0] * pres.shape[1]} blocks search all {steps})")
+
+
+def phase12_presence_vs_plain(torch, np, smi) -> tuple:
+    """The predicated estimate kernel against its plain masked version at
+    full size: a seeded random K = 32 stack and a seeded random presence
+    table of density ~0.5, on the headline pyramid's block grain."""
+    from lfinterpolator_tpu_torch.ops import focus_estimate, focus_torch
+
+    p, _, offsets, ids, tables = allfocus_setup(0.1, 0.3, COLS, ROWS, H, W, pyramid=True)
+    plan = p.pyramid
+    if plan is None:
+        raise AssertionError("the headline geometry has no pyramid plan")
+    steps = len(p.tables.candidates)
+    rng = np.random.default_rng(SEED + 4)
+    selected = torch.from_numpy(
+        rng.integers(0, 256, (len(ids), 3, H, W), dtype=np.uint8)).cuda()
+    pres = torch.from_numpy(rng.integers(
+        0, 2**plan.sc, (plan.nb, plan.n_wc, steps // plan.sc), dtype=np.int32)).cuda()
+    density = presence_density(torch, pres, plan.sc, steps)
+    args = (selected, offsets[ids], tables, p.radius)
+    err = check_equal(torch, "focus_estimate (presence)",
+                      focus_estimate.focus_estimate(*args, True, pres, plan),
+                      focus_torch.estimate_presence(*args, pres, plan))
+    ms = event_ms(torch, lambda: focus_estimate.focus_estimate(*args, True, pres, plan),
+                  runs=5)
+    exact_ms = event_ms(torch, lambda: focus_estimate.focus_estimate(*args), runs=5)
+    plain_ms = event_ms(torch, lambda: focus_torch.estimate_presence(*args, pres, plan),
+                        runs=2)
+    log(f"[12] {plan}; random presence table, density {density}: kernel == "
+        f"plain on {H * W} map bytes; kernel {ms:.3f} ms, exact sweep {exact_ms:.3f} "
+        f"ms, plain {plain_ms:.3f} ms ({smi})")
+    return ({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms},
+            {"random_density": density, "presence_ms": ms,
+             "exact_ms": exact_ms})
+
+
+def structured_selected(np, sel_off, planes, seed):
+    """[K, 3, H, W] u8: three horizontal bands, each a textured plane at one
+    of `planes` (focus values on the candidate grid), as the JAX tests'
+    _structured_selected builds at 96x512: the pyramid's coarse map is
+    coherent there, and its presence table prunes."""
+    rng = np.random.default_rng(seed)
+    m = int(np.ceil(np.abs(planes).max() * np.abs(sel_off).max())) + 8
+    t = rng.integers(0, 256, (3, H + 2 * m, W + 2 * m), dtype=np.uint8).astype(np.float32)
+    tex = ((t + np.roll(t, 1, 1) + np.roll(t, 2, 2)) / 3).astype(np.uint8)
+    del t
+    band = H // 3
+    out = np.empty((len(sel_off), 3, H, W), np.uint8)
+    for v in range(len(sel_off)):
+        y0 = 0
+        for f, hb in zip(planes, (band, band, H - 2 * band)):
+            dx = int(round(-f * sel_off[v, 0])) + m
+            dy = int(round(-f * sel_off[v, 1])) + m
+            out[v, :, y0:y0 + hb] = tex[:, dy + y0:dy + y0 + hb, dx:dx + W]
+            y0 += hb
+    return out
+
+
+def phase13_pyramid_vs_plain(torch, np, smi) -> None:
+    """The coarse-to-fine estimate (both passes on the kernel, the presence
+    table in torch ops) against its plain version at full size on a
+    three-plane scene; its time against the exact sweep's."""
+    from lfinterpolator_tpu_torch.ops import focus_estimate, focus_torch
+
+    p, _, offsets, ids, tables = allfocus_setup(0.1, 0.3, COLS, ROWS, H, W, pyramid=True)
+    plan = p.pyramid
+    cands = p.tables.candidates
+    planes = cands[[0, len(cands) // 2, len(cands) - 1]]
+    selected = torch.from_numpy(structured_selected(
+        np, p.offsets[p.focus_ids], planes, SEED + 5)).cuda()
+    args = (selected, offsets[ids], tables, p.radius)
+    got = focus_estimate.focus_estimate_pyramid(*args, plan)
+    err = check_equal(torch, "focus_estimate_pyramid", got,
+                      focus_torch.estimate_pyramid(*args, plan))
+    s = plan.scale
+    coarse = focus_estimate.focus_estimate(selected[:, :, ::s, ::s], offsets[ids] / s,
+                                           tables, plan.radius_c)
+    pres = focus_torch.presence_from_coarse(coarse, plan, len(cands))
+    density = presence_density(torch, pres, plan.sc, len(cands))
+    exact = focus_estimate.focus_estimate(*args)
+    agree = float((got == exact).float().mean())
+    ms = event_ms(torch, lambda: focus_estimate.focus_estimate_pyramid(*args, plan), runs=5)
+    coarse_ms = event_ms(torch, lambda: focus_estimate.focus_estimate(
+        selected[:, :, ::s, ::s], offsets[ids] / s, tables, plan.radius_c), runs=5)
+    exact_ms = event_ms(torch, lambda: focus_estimate.focus_estimate(*args), runs=5)
+    plain_ms = event_ms(torch, lambda: focus_torch.estimate_pyramid(*args, plan), runs=1)
+    log(f"[13] three-plane scene (planes {planes.tolist()}): pyramid kernels == plain "
+        f"(max err {err}); presence density {density}; map == exact sweep on "
+        f"{agree:.6f} of pixels; pyramid {ms:.3f} ms (coarse pass {coarse_ms:.3f} ms), "
+        f"exact sweep {exact_ms:.3f} ms, plain pyramid {plain_ms:.3f} ms ({smi})")
+
+
+def phase14_pyramid_api(torch, np, lf, smi) -> int:
+    """The pyramid through the Interpolator on phase 5's light field
+    (focus 0.1, range 0.3, TEN): kernel launches counted, views and maps
+    equal to the plain pipeline on the same tensors."""
+    from lfinterpolator_tpu_torch import RenderConfig
+    from lfinterpolator_tpu_torch.api import Interpolator
+    from lfinterpolator_tpu_torch.ops import blend_torch, focus_estimate, focus_torch
+
+    interp = Interpolator(lf, device="cuda", progress=False,
+                          config=RenderConfig(focus_pyramid=True))
+    focus_estimate.launches.update(exact=0, fast=0, pyramid=0)  # the main path's
+    res = interp.interpolate(TRAJECTORY, focus=0.1, focus_range=0.3, method="TEN",
+                             benchmark_runs=5, progress=False)
+    launches = dict(focus_estimate.launches)
+    log(f"[14] estimate kernel launches in the pyramid renders: {launches}")
+    if launches["pyramid"] < 1 or launches["exact"] != launches["pyramid"]:
+        raise AssertionError(f"the pyramid path did not run its kernels: {launches}")
+    p, weights, offsets, ids, tables = allfocus_setup(0.1, 0.3, COLS, ROWS, H, W,
+                                                      pyramid=True)
+    images = interp.images
+    map0 = focus_torch.estimate_pyramid(images[ids], offsets[ids], tables, p.radius,
+                                        p.pyramid)
+    map1 = focus_torch.filter_focus_map(map0, p.filter_radius)
+    if not (np.array_equal(res.maps[0], map0.cpu().numpy())
+            and np.array_equal(res.maps[1], map1.cpu().numpy())):
+        raise AssertionError("pyramid maps != the plain pipeline's")
+    views = blend_torch.render_allfocus(images, weights, offsets, map0, tables.decode)
+    if not np.array_equal(res.views, blend_torch.from_planar(views).cpu().numpy()):
+        raise AssertionError("pyramid views != the plain pipeline's")
+    exact = focus_torch.estimate_focus_map(images[ids], offsets[ids], tables, p.radius)
+    s = p.pyramid.scale
+    coarse = focus_estimate.focus_estimate(images[ids][:, :, ::s, ::s], offsets[ids] / s,
+                                           tables, p.pyramid.radius_c)
+    density = presence_density(
+        torch, focus_torch.presence_from_coarse(coarse, p.pyramid, len(p.tables.candidates)),
+        p.pyramid.sc, len(p.tables.candidates))
+    log(f"[14] TEN pyramid: {res.avg_ms:.3f} ms/frame (estimate, filter, blend), "
+        f"{res.megapixels_per_s / 1e3:.3f} output GP/s over 5 runs ({smi}); "
+        f"presence density {density}; map0 == exact sweep on "
+        f"{float((map0 == exact).float().mean()):.6f} of pixels; views and maps == "
+        "the plain pipeline")
+    del views, interp
+    torch.cuda.empty_cache()
+    return launches["pyramid"]
+
+
+def phase15_quilt_blend_vs_plain(torch, np, smi) -> tuple:
+    """The quilt instantiation against its plain version (the first 45
+    views of the plain render, then the montage) at full size, focus 0.1,
+    and shift_blend's 64 views in the same run for scale."""
+    from lfinterpolator_tpu_torch.ops import quilt, shift_blend
+    from lfinterpolator_tpu_torch.state import to_device_state
+
+    rng = np.random.default_rng(SEED + 6)
+    stack = rng.integers(0, 256, (COLS * ROWS, H, W, 3), dtype=np.uint8)
+    wm, fo = weights_and_shifts(COLS, ROWS, H, W, 0.1)
+    args = to_device_state(stack, wm, fo, "cuda")
+    del stack
+    got = quilt.quilt_blend(*args)
+    if got.shape != (3, 9 * H, 5 * W):
+        raise AssertionError(f"quilt_blend canvas {tuple(got.shape)}")
+    err = check_equal(torch, "quilt_blend", got, quilt.quilt_blend_reference(*args))
+    del got
+    ms = event_ms(torch, lambda: quilt.quilt_blend(*args))
+    blend_ms = event_ms(torch, lambda: shift_blend.shift_blend(*args))
+    plain_ms = event_ms(torch, lambda: quilt.quilt_blend_reference(*args), runs=3)
+    log(f"[15] quilt_blend == plain on {3 * 9 * H * 5 * W} canvas bytes; kernel "
+        f"{ms:.3f} ms, shift_blend (64 views) {blend_ms:.3f} ms, plain {plain_ms:.3f} ms "
+        f"({smi})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}, args[0]
+
+
+def phase16_quilt_copy_vs_plain(torch, np, tiles, smi) -> dict:
+    """The tile copy against its plain version (reshape/permute) at full
+    size: 45 of 64 1080x1920 tiles into the 5x9 canvas."""
+    from lfinterpolator_tpu_torch.ops import quilt, quilt_torch
+
+    err = check_equal(torch, "quilt_copy", quilt.quilt_copy(tiles),
+                      quilt_torch.montage(tiles, 5, 9))
+    ms = event_ms(torch, lambda: quilt.quilt_copy(tiles))
+    plain_ms = event_ms(torch, lambda: quilt_torch.montage(tiles, 5, 9))
+    moved = 2 * 45 * 3 * H * W
+    log(f"[16] quilt_copy == plain on {moved // 2} canvas bytes; kernel {ms:.3f} ms "
+        f"({moved / ms / 1e9:.3f} TB/s of reads + writes), plain {plain_ms:.3f} ms "
+        f"({smi})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def montage(np, views, cols=5, rows=9):
+    """[V, h, w, 3] -> [rows*h, cols*w, 3], view i at (i // cols, i % cols)."""
+    h, w = views.shape[1:3]
+    return (views[:cols * rows].reshape(rows, cols, h, w, 3).transpose(0, 2, 1, 3, 4)
+            .reshape(rows * h, cols * w, 3))
+
+
+def phase17_render_quilt(torch, np, lf, smi) -> dict:
+    """render_quilt on phase 5's light field at focus 0.1: the fused route
+    (TEN, the quilt kernel) and the two-stage route (STD, then the tile
+    copy), each timed over 10 runs, launches counted; the quilts equal each
+    other and the montage of the TEN render's views."""
+    from lfinterpolator_tpu_torch.api import Interpolator
+    from lfinterpolator_tpu_torch.ops import quilt
+
+    interp = Interpolator(lf, device="cuda", progress=False)
+    launches = {}
+    results = {}
+    for name, method, key in (("fused", "TEN", "quilt_blend"),
+                              ("two-stage", "STD", "quilt_copy")):
+        quilt.launches.update(quilt_blend=0, quilt_copy=0)  # the main path's
+        results[name] = interp.render_quilt(TRAJECTORY, focus=0.1, method=method,
+                                            benchmark_runs=10, progress=False)
+        launches[key] = quilt.launches[key]
+        if launches[key] < 1 or results[name].fused is not (name == "fused"):
+            raise AssertionError(f"{name} quilt: launches {dict(quilt.launches)}, "
+                                 f"fused {results[name].fused}")
+    fused, two = results["fused"].quilt, results["two-stage"].quilt
+    if fused.shape != (9 * H, 5 * W, 3) or not np.array_equal(fused, two):
+        raise AssertionError("the fused quilt != the two-stage quilt")
+    views = interp.interpolate(TRAJECTORY, focus=0.1, method="TEN", progress=False).views
+    if not np.array_equal(fused, montage(np, views)):
+        raise AssertionError("the quilt != the montage of the rendered views")
+    del interp, views
+    torch.cuda.empty_cache()
+    log(f"[17] render_quilt 5x9 of 1080x1920 tiles: fused {results['fused'].avg_ms:.3f} "
+        f"ms, two-stage (64-view STD render + tile copy) "
+        f"{results['two-stage'].avg_ms:.3f} ms over 10 runs ({smi}); quilts equal; "
+        f"launches {launches}")
+    return launches
+
+
+def phase18_cli(torch, np, lf) -> None:
+    """The quilt CLI (--quilt-only, --quilt) at a quarter of the resolution
+    and the pyramid CLI (-r 0.3 --focus-pyramid) at half (the pyramid needs
+    W >= 512); their PNGs decode equal to the API's output."""
+    from lfinterpolator_tpu_torch import RenderConfig, state
+    from lfinterpolator_tpu_torch.api import Interpolator
+    from lfinterpolator_tpu_torch.io import LightField
+
+    small = LightField(np.ascontiguousarray(lf.images[:, ::4, ::4]), COLS, ROWS)
+    interp = Interpolator(small, device="cuda", progress=False)
+    q = interp.render_quilt(TRAJECTORY, focus=0.1, method="TEN", progress=False)
+    ten = interp.interpolate(TRAJECTORY, focus=0.1, method="TEN", progress=False)
+    run_cli(np, 18, small.images, [
+        (["-m", "TEN", "-f", "0.1", "--quilt-only"], {"quilt.png": q.quilt}),
+        (["-m", "TEN", "-f", "0.1", "--quilt"],
+         {**view_files(np, ten.views), "quilt.png": q.quilt}),
+    ])
+    half = LightField(np.ascontiguousarray(lf.images[:, ::2, ::2]), COLS, ROWS)
+    cfg = RenderConfig(focus_pyramid=True)
+    p = state.allfocus_params(TRAJECTORY, cols=COLS, rows=ROWS, height=H // 2,
+                              width=W // 2, config=RenderConfig(
+                                  focus=0.1, focus_range=0.3, focus_pyramid=True))
+    if p.pyramid is None:
+        raise AssertionError("no pyramid at half resolution")
+    af = Interpolator(half, device="cuda", progress=False, config=cfg).interpolate(
+        TRAJECTORY, focus=0.1, focus_range=0.3, method="TEN", progress=False)
+    del interp
+    torch.cuda.empty_cache()
+    run_cli(np, 18, half.images, [
+        (["-m", "TEN", "-f", "0.1", "-r", "0.3", "--focus-pyramid"],
+         view_files(np, af.views, af.maps))])
+
+
 def main() -> int:
     import torch
 
@@ -528,8 +831,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase9_new_kernels_vs_oracle(torch, np)
     af_ten, af_launches = phase10_allfocus_api(torch, np, lf, smi)
-    run_cli(np, 11, lf.images, ["-m", "TEN", "-f", "0.1", "-r", "0.3"],
-            af_ten.views, af_ten.maps)
+    run_cli(np, 11, lf.images, [(["-m", "TEN", "-f", "0.1", "-r", "0.3"],
+                                 view_files(np, af_ten.views, af_ten.maps))])
+    del af_ten
+    k9, pyr = phase12_presence_vs_plain(torch, np, smi)
+    torch.cuda.empty_cache()
+    phase13_pyramid_vs_plain(torch, np, smi)
+    torch.cuda.empty_cache()
+    pyr_launches = phase14_pyramid_api(torch, np, lf, smi)
+    k4, tiles = phase15_quilt_blend_vs_plain(torch, np, smi)
+    k5 = phase16_quilt_copy_vs_plain(torch, np, tiles, smi)
+    del tiles
+    torch.cuda.empty_cache()
+    quilt_launches = phase17_render_quilt(torch, np, lf, smi)
+    phase18_cli(torch, np, lf)
     jax_mods = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
     if jax_mods:
         raise AssertionError(f"the port imported jax: {jax_mods[:5]}")
@@ -553,8 +868,22 @@ def main() -> int:
          "source": src + "focus_estimate.cu",
          "replaces": "lfinterpolator_tpu/ops/estimate_pallas.py:587 (_est_fast_kernel)",
          "launches": af_launches["focus_estimate_fast"], **est["fast"]},
+        {"name": "focus_estimate_pyramid", "route": "cuda",
+         "source": src + "focus_estimate.cu",
+         "replaces": "lfinterpolator_tpu/ops/estimate_pallas.py:271 "
+                     "(_est_kernel, predicated=True: :320-338, 502, 540; entries "
+                     "_estimate_fused_pres :1238, estimate_fused_pyramid :1251)",
+         "launches": pyr_launches, **k9},
+        {"name": "quilt_blend", "route": "cuda", "source": src + "shift_blend.cu",
+         "replaces": "lfinterpolator_tpu/ops/blend_pallas.py:311 (_blend_quilt_kernel), "
+                     "lfinterpolator_tpu/ops/shift_pallas.py:277 (_pshift_kernel)",
+         "launches": quilt_launches["quilt_blend"], **k4},
+        {"name": "quilt_copy", "route": "cuda", "source": src + "quilt.cu",
+         "replaces": "lfinterpolator_tpu/ops/quilt.py:38 (_copy_kernel)",
+         "launches": quilt_launches["quilt_copy"], **k5},
     ]
-    log(f"[12] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"[19] predicated estimate at full size: {pyr}")
+    log(f"[19] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

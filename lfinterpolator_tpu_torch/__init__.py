@@ -4,7 +4,8 @@ The port of ``lfinterpolator_tpu`` (JAX/Pallas) to PyTorch, with the JAX
 package's Pallas kernels rewritten by hand in CUDA C++ for Hopper (H100).
 Load a camera-grid light field, then synthesize 64 novel views along a
 trajectory by shift-and-sum weighted blending, at a fixed focus or all in
-focus (a per-pixel focus map from a disparity search). The rest of the JAX
+focus (a per-pixel focus map from a disparity search, exact or
+coarse-to-fine), as PNGs or as a Looking Glass quilt. The rest of the JAX
 package's surface follows slice by slice (ROADMAP.md).
 
 Importing the package imports neither jax nor torch's CUDA runtime, and
@@ -19,6 +20,7 @@ __all__ = [
     "RenderConfig",
     "Interpolator",
     "RenderResult",
+    "QuiltResult",
     "interpolate",
     "__version__",
 ]
@@ -26,6 +28,7 @@ __all__ = [
 _LAZY = {
     "Interpolator": ("lfinterpolator_tpu_torch.api", "Interpolator"),
     "RenderResult": ("lfinterpolator_tpu_torch.api", "RenderResult"),
+    "QuiltResult": ("lfinterpolator_tpu_torch.api", "QuiltResult"),
     "interpolate": ("lfinterpolator_tpu_torch.api", "interpolate"),
 }
 

@@ -2,15 +2,14 @@
 
 Same flags as ``lfinterpolator_tpu.cli`` (its ``build_parser`` is reused),
 plus ``--device`` (default ``cuda``). Runs the fixed-focus render, and with
-``-r > 0`` the all-in-focus one (``--focus-views``, ``--fast-focus``),
-which also writes ``map0.png``/``map1.png``:
+``-r > 0`` the all-in-focus one (``--focus-views``, ``--fast-focus``,
+``--focus-pyramid``), which also writes ``map0.png``/``map1.png``; the
+quilt flags add ``quilt.png`` (``--quilt``, ``--quilt-tile HxW``,
+``--quilt-reference``) or write only it (``--quilt-only``):
 
     python -m lfinterpolator_tpu_torch.cli -i scene/ -o out/ -t 0,0,1,1 -m TEN -f 0.1
     python -m lfinterpolator_tpu_torch.cli -i scene/ -o out/ -t 0,0,1,1 -m TEN -f 0.1 -r 0.3
-
-Flags of parts not yet ported (``--focus-pyramid`` with ``-r > 0``, the
-``--quilt*`` family) exit 1 with a one-line message naming the ROADMAP
-slice that brings them.
+    python -m lfinterpolator_tpu_torch.cli -i scene/ -o out/ -t 0,0,1,1 -m TEN -f 0.1 --quilt-only
 """
 
 from __future__ import annotations
@@ -36,6 +35,12 @@ The following arguments are normalized offsets of the images in shift & sum
 -b - number of timed benchmark repetitions of the render step (default=0)
 --focus-views - views used by the focus search (default=32)
 --fast-focus - evaluate the focus search's tap truncation at each tap, not at the center pixel
+--focus-pyramid - approximate coarse-to-fine focus search: a half-resolution sweep, then a full-resolution search over each block's nearby candidates (exact taps; the exact sweep runs where the geometry does not take it)
+--quilt - also write quilt.png, a 5x9 montage of the first 45 views
+--quilt-only - write only quilt.png; a fixed-focus TEN render blends just the 45 placed views, straight into the canvas
+--quilt-tile HxW - resize the quilt's tiles to HxW (default: the views' size)
+--quilt-reference - write the quilt with 1080x1920 tiles, as scripts/viewsToQuilt.sh does; implies --quilt
+--json - print a machine-readable summary line
 --device - torch device to render on: cuda (default) or cpu (plain PyTorch path)
 """
 
@@ -45,16 +50,6 @@ def build_parser():
     p.prog = "lfi-interpolate-torch"
     p.add_argument("--device", default="cuda")
     return p
-
-
-def _not_ported(args) -> str | None:
-    """The one-line message for a requested part not yet ported, or None."""
-    if args.range > 0 and args.focus_pyramid:
-        return ("Coarse-to-fine focus estimation (--focus-pyramid) is not yet "
-                "ported (ROADMAP slice 2b)")
-    if args.quilt or args.quilt_only or args.quilt_tile or args.quilt_reference:
-        return "Quilt output (--quilt*) is not yet ported (ROADMAP slice 3)"
-    return None
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -71,19 +66,29 @@ def main(argv: list[str] | None = None) -> int:
     from lfinterpolator_tpu.core.config import RenderConfig
 
     progress = not args.no_progress and not args.json_out
+    # Validate the quilt geometry BEFORE the render: a bad --quilt-tile
+    # fails in milliseconds, not after the load.
+    quilt_tile = (1080, 1920) if args.quilt_reference else None
+    if args.quilt_tile:
+        try:
+            th, tw = (int(x) for x in args.quilt_tile.split("x"))
+            if th <= 0 or tw <= 0:
+                raise ValueError(args.quilt_tile)
+        except ValueError:
+            print(f"Bad --quilt-tile {args.quilt_tile!r}; expected "
+                  "HxW with positive sizes, e.g. 1080x1920", file=sys.stderr)
+            return 1
+        quilt_tile = (th, tw)
     try:
         # Validate everything BEFORE the (slow) grid load + device upload.
         config = RenderConfig(
             method=args.method, effect=args.effect, aspect=args.aspect,
             focus_map_views=args.focus_views,
             exact_focus_taps=not args.fast_focus,
+            focus_pyramid=args.focus_pyramid,
         )
         config.validate()
         geometry.parse_trajectory(args.trajectory, (2, 2))  # format check
-        message = _not_ported(args)
-        if message:
-            print(message, file=sys.stderr)
-            return 1
 
         from .api import Interpolator
         from .io import load_light_field
@@ -96,6 +101,32 @@ def main(argv: list[str] | None = None) -> int:
         interp = Interpolator(
             source, config=config, progress=progress, device=args.device
         )
+        if args.quilt_only:
+            qres = interp.render_quilt(
+                args.trajectory,
+                focus=args.focus,
+                focus_range=args.range,
+                tile_size=quilt_tile,
+                benchmark_runs=args.bench_runs,
+                progress=progress,
+            )
+            written = [qres.save(f"{args.output}/quilt.png")]
+            if args.json_out:
+                print(
+                    json.dumps(
+                        {
+                            "quilt": [
+                                int(qres.quilt.shape[1]),
+                                int(qres.quilt.shape[0]),
+                            ],
+                            "method": qres.config.method,
+                            "fused": qres.fused,
+                            "avg_ms": qres.avg_ms,
+                            "files_written": len(written),
+                        }
+                    )
+                )
+            return 0
         result = interp.interpolate(
             args.trajectory,
             focus=args.focus,
@@ -104,6 +135,13 @@ def main(argv: list[str] | None = None) -> int:
             progress=progress,
         )
         written = result.save(args.output, progress=progress)
+        if args.quilt or args.quilt_reference or args.quilt_tile:
+            if result.views.shape[0] >= 45:
+                written.append(result.save_quilt(
+                    f"{args.output}/quilt.png", tile_size=quilt_tile
+                ))
+            else:
+                print("Quilt skipped: needs >= 45 views", file=sys.stderr)
         if args.json_out:
             print(
                 json.dumps(

@@ -63,9 +63,10 @@ allfocus_blend_kernel(const uint8_t* __restrict__ img,   // [G, C, H, W]
   const float f = x < W ? decode[fmap[(int64_t)y * W + x]] : 0.0f;
 
   const int64_t plane = (int64_t)H * W;
-  lfi::blend_views(w, G, V, x < W, w_s,
-                   out + (int64_t)c * plane + (int64_t)y * W + x,
-                   (int64_t)C * plane, [&](int g) {
+  uint8_t* const px = out + (int64_t)c * plane + (int64_t)y * W + x;
+  const int64_t view_stride = (int64_t)C * plane;
+  lfi::blend_views<false>(w, G, V, x < W, w_s,
+                   [&](int v) { return px + v * view_stride; }, [&](int g) {
                      const int sy = lfi::focus_coord(y, f, oy_s[g], H);
                      const int sx = lfi::focus_coord(x, f, ox_s[g], W);
                      return (float)img[((int64_t)g * C + c) * plane +

@@ -11,9 +11,19 @@
 //   fast:            ty = trunc(f32(y + sy) + f_i*oy_k)       (at the tap)
 // and likewise in x.
 //
-// Replaces two TPU kernels of the JAX package, one instantiation each:
+// Replaces three TPU kernels of the JAX package, one instantiation each:
 //   * estimate_pallas._est_kernel      (lfinterpolator_tpu/ops/estimate_pallas.py:271), exact
 //   * estimate_pallas._est_fast_kernel (lfinterpolator_tpu/ops/estimate_pallas.py:587), fast
+//   * _est_kernel(predicated=True), the presence-predicated refine pass of
+//     the coarse-to-fine estimate (estimate_pallas.py:320-338, 502, 540;
+//     entries _estimate_fused_pres :1238, estimate_fused_pyramid :1251),
+//     exact taps: candidate i is skipped for a pixel when bit i % sc of
+//     pres[y / tb][x / wco][i / sc] is clear. The TPU skipped whole DMA
+//     windows and grid steps; here the candidate loop skips the candidate.
+//     tb is a multiple of kBlockY and wco of kBlockX (the entry point
+//     refuses anything else), so all 256 threads of a block share one
+//     presence word and skip together: the skip saves the work, not only
+//     the result.
 // Their DMA windows, lane chunks, slab mode and SWAR packing worked around
 // VMEM and the TPU's missing u8 min/max; a GPU thread reads its taps
 // straight from device memory, and __vminu4/__vmaxu4 do the four byte
@@ -56,14 +66,22 @@ __device__ __forceinline__ int chebyshev(uint32_t mx, uint32_t mn) {
   return (int)max(lo, hi);
 }
 
-template <bool kExact>
+// The presence words of the refine pass: pixel (y, x) searches candidate i
+// only when bit i % sc of words[((y / tb) * n_wc + x / wco) * cc + i / sc] is set.
+struct Presence {
+  const int32_t* words;  // [NB, N_WC, CC]
+  int tb, wco, sc, n_wc, cc;
+};
+
+template <bool kExact, bool kPres>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 focus_estimate_kernel(const uint32_t* __restrict__ views,     // [K, H, W] RGBx
                       const float* __restrict__ offs,         // [K, 2] (x, y)
                       const float* __restrict__ cands,        // [S]
                       const uint8_t* __restrict__ cand_bytes, // [S]
                       uint8_t* __restrict__ out,              // [H, W]
-                      int K, int H, int W, int S, int rx, int ry) {
+                      int K, int H, int W, int S, int rx, int ry,
+                      Presence pres) {
   __shared__ float ox_s[kMaxViews];
   __shared__ float oy_s[kMaxViews];
   __shared__ float cand_s[kMaxSteps];
@@ -82,9 +100,13 @@ focus_estimate_kernel(const uint32_t* __restrict__ views,     // [K, H, W] RGBx
   const int sy[3] = {-ry, 0, ry};
   const int sx[3] = {-rx, 0, rx};
 
+  const int32_t* words =
+      kPres ? pres.words + ((int64_t)(y / pres.tb) * pres.n_wc + x / pres.wco) * pres.cc
+            : nullptr;
   int best_cost = INT_MAX;
   int best = 0;
   for (int i = 0; i < S; ++i) {
+    if (kPres && !((words[i / pres.sc] >> (i % pres.sc)) & 1)) continue;
     const float f = cand_s[i];
     uint32_t mn[9], mx[9];
 #pragma unroll
@@ -154,12 +176,37 @@ int lfi_focus_estimate(const uint32_t* views, const float* offs,
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
   if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
+  const Presence none{nullptr, 1, 1, 1, 1, 1};
   if (exact)
-    focus_estimate_kernel<true><<<grid, block, 0, stream>>>(
-        views, offs, cands, cand_bytes, out, K, H, W, S, rx, ry);
+    focus_estimate_kernel<true, false><<<grid, block, 0, stream>>>(
+        views, offs, cands, cand_bytes, out, K, H, W, S, rx, ry, none);
   else
-    focus_estimate_kernel<false><<<grid, block, 0, stream>>>(
-        views, offs, cands, cand_bytes, out, K, H, W, S, rx, ry);
+    focus_estimate_kernel<false, false><<<grid, block, 0, stream>>>(
+        views, offs, cands, cand_bytes, out, K, H, W, S, rx, ry, none);
+  return (int)cudaGetLastError();
+}
+
+// The exact estimate restricted by the presence words `pres`
+// ([nb, n_wc, cc] int32; see Presence). The words must cover the frame and
+// the candidates (nb * tb >= H, n_wc * wco >= W, cc * sc >= S), and tb and
+// wco must be multiples of the block's 8 rows and 32 columns.
+int lfi_focus_estimate_pres(const uint32_t* views, const float* offs,
+                            const float* cands, const uint8_t* cand_bytes,
+                            const int32_t* pres, uint8_t* out, int K, int H,
+                            int W, int S, int rx, int ry, int tb, int wco,
+                            int sc, int nb, int n_wc, int cc,
+                            cudaStream_t stream) {
+  if (K < 1 || K > kMaxViews || S < 1 || S > kMaxSteps || H < 1 || W < 1 ||
+      rx < 0 || ry < 0 || tb < 1 || wco < 1 || sc < 1 || sc > 31 ||
+      tb % kBlockY != 0 || wco % kBlockX != 0 || (int64_t)nb * tb < H ||
+      (int64_t)n_wc * wco < W || (int64_t)cc * sc < S)
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
+  if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
+  focus_estimate_kernel<true, true><<<grid, block, 0, stream>>>(
+      views, offs, cands, cand_bytes, out, K, H, W, S, rx, ry,
+      Presence{pres, tb, wco, sc, n_wc, cc});
   return (int)cudaGetLastError();
 }
 

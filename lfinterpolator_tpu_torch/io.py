@@ -3,16 +3,16 @@
 Those modules are NumPy-only (they import no jax), so the port uses them as
 they are: ``load_light_field`` decodes a ``col_row.ext`` grid into a
 ``LightField``, ``write_views`` writes ``00.png ... NN.png`` (each frame to
-a ``.tmp`` file renamed into place), and ``decode``/``encode_png`` go
-through the native libpng/libjpeg codec where it is built
-(``make -C native``), else through Pillow.
+a ``.tmp`` file renamed into place), ``write_quilt`` one quilt PNG, and
+``decode``/``encode_png`` go through the native libpng/libjpeg codec where
+it is built (``make -C native``), else through Pillow.
 """
 
 from __future__ import annotations
 
 from lfinterpolator_tpu.io.codec import decode, encode_png, native_available
 from lfinterpolator_tpu.io.loader import LightField, load_light_field
-from lfinterpolator_tpu.io.writer import write_views
+from lfinterpolator_tpu.io.writer import write_quilt, write_views
 
 __all__ = [
     "LightField",
@@ -20,6 +20,7 @@ __all__ = [
     "decode",
     "encode_png",
     "load_light_field",
+    "write_quilt",
     "write_views",
 ]
 

@@ -11,10 +11,12 @@ Port of ``lfinterpolator_tpu/models/pipeline.py`` (``render_fixed_focus``
 
 All-in-focus (``focus_range > 0``), both methods, as the JAX package routes
 them when its kernels are available (``pipeline.py:359-390``): the estimate
-kernel (ops/focus_estimate.py), the box filter in torch ops, and the fused
-per-pixel-focus blend kernel (ops/allfocus_blend.py); on CPU tensors their
-plain versions. STD blends with the filtered map, TEN with the raw one
-(the reference's asymmetry, ``pipeline.py:135``).
+kernel (ops/focus_estimate.py) -- or, given a ``pyramid`` plan
+(``--focus-pyramid``), the coarse-to-fine estimate on the same kernel --
+the box filter in torch ops, and the fused per-pixel-focus blend kernel
+(ops/allfocus_blend.py); on CPU tensors their plain versions. STD blends
+with the filtered map, TEN with the raw one (the reference's asymmetry,
+``pipeline.py:135``).
 
 PyTorch runs eagerly, so there is nothing to jit; shapes, focus and
 trajectory may change from call to call at no cost.
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.estimate_geometry import Pyramid
 from ..state import FocusTables
 from ..ops import allfocus_blend, blend_torch, focus_estimate, focus_torch, shift_blend
 
@@ -51,11 +54,21 @@ def compute_focus_maps(
     radius: tuple[int, int],
     filter_radius: tuple[int, int],
     exact_taps: bool = True,
+    pyramid: Pyramid | None = None,
 ) -> torch.Tensor:
-    """Estimate + filter -> maps [2, H, W] uint8 (raw, filtered)."""
-    map0 = focus_estimate.focus_estimate(
-        images[focus_ids], offsets[focus_ids], tables, radius, exact_taps
-    )
+    """Estimate + filter -> maps [2, H, W] uint8 (raw, filtered).
+
+    `pyramid` (exact taps only) runs the approximate coarse-to-fine
+    estimate instead of the full sweep."""
+    selected, sel_offsets = images[focus_ids], offsets[focus_ids]
+    if pyramid is not None:
+        if not exact_taps:
+            raise ValueError("the focus pyramid is exact-taps only")
+        map0 = focus_estimate.focus_estimate_pyramid(
+            selected, sel_offsets, tables, radius, pyramid)
+    else:
+        map0 = focus_estimate.focus_estimate(
+            selected, sel_offsets, tables, radius, exact_taps)
     map1 = focus_torch.filter_focus_map(map0, filter_radius)
     return torch.stack([map0, map1])
 
@@ -86,6 +99,7 @@ def render_all_focus(
     radius: tuple[int, int],
     filter_radius: tuple[int, int],
     exact_taps: bool = True,
+    pyramid: Pyramid | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """All-in-focus render: estimate -> filter -> per-pixel blend.
 
@@ -93,7 +107,7 @@ def render_all_focus(
     """
     maps = compute_focus_maps(
         images, offsets, focus_ids, tables, radius=radius,
-        filter_radius=filter_radius, exact_taps=exact_taps,
+        filter_radius=filter_radius, exact_taps=exact_taps, pyramid=pyramid,
     )
     views = blend_all_focus(
         images, weights, offsets, maps, tables.decode, method=method

@@ -129,7 +129,15 @@ def load() -> ctypes.CDLL:
                 # (views, offs, cands, cand_bytes, out, K, H, W, S, rx, ry,
                 #  exact, stream)
                 "lfi_focus_estimate": [ptr] * 5 + [i32] * 7 + [ptr],
+                # (views, offs, cands, cand_bytes, pres, out, K, H, W, S, rx,
+                #  ry, tb, wco, sc, nb, n_wc, cc, stream)
+                "lfi_focus_estimate_pres": [ptr] * 6 + [i32] * 12 + [ptr],
+                # (img, w, shifts, canvas, G, C, H, W, cols, rows, stream)
+                "lfi_quilt_blend": [ptr] * 4 + [i32] * 6 + [ptr],
+                # (tiles, canvas, C, th, tw, cols, rows, stream)
+                "lfi_quilt_copy": [ptr] * 2 + [i32] * 5 + [ptr],
                 "lfi_shift_blend_max_grid": [],
+                "lfi_quilt_blend_max_views": [],
                 "lfi_allfocus_blend_max_grid": [],
                 "lfi_focus_estimate_max_views": [],
                 "lfi_focus_estimate_max_steps": [],

@@ -55,22 +55,27 @@ def shift_stack(images: torch.Tensor, offsets_xy: torch.Tensor) -> torch.Tensor:
     return images[gi, ci, ys[:, None, :, None], xs[:, None, None, :]]
 
 
-def blend(shifted: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """[G, C, H, W] u8 x [V, G] f32 -> [V, C, H, W] u8.
-
-    f32 accumulation, round half to even, clip, cast (the reference STD
-    kernel's __float2int_rn store). TF32 would keep only ~10 mantissa bits
-    of the pixel operand, so it is switched off for this product, and the
-    caller's setting is restored after it.
-    """
-    g, c, h, w = shifted.shape
-    flat = shifted.reshape(g, c * h * w).to(torch.float32)
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul`` of two float32 operands in full float32. TF32 would
+    keep only ~10 mantissa bits of an operand, so it is switched off for
+    this product, and the caller's setting is restored after it."""
     allow_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        acc = torch.matmul(weights.to(torch.float32), flat)
+        return torch.matmul(a, b)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+
+
+def blend(shifted: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """[G, C, H, W] u8 x [V, G] f32 -> [V, C, H, W] u8.
+
+    f32 accumulation (``matmul_f32``), round half to even, clip, cast (the
+    reference STD kernel's __float2int_rn store).
+    """
+    g, c, h, w = shifted.shape
+    flat = shifted.reshape(g, c * h * w).to(torch.float32)
+    acc = matmul_f32(weights.to(torch.float32), flat)
     del flat
     out = acc.round_().clamp_(0, 255).to(torch.uint8)
     return out.reshape(weights.shape[0], c, h, w)

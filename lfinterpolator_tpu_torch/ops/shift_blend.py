@@ -40,7 +40,8 @@ def shift_blend_reference(
     return blend_torch.blend(blend_torch.shift_stack(images, shifts), weights)
 
 
-def _check(images: torch.Tensor, weights: torch.Tensor, shifts: torch.Tensor):
+def check_operands(images: torch.Tensor, weights: torch.Tensor,
+                   shifts: torch.Tensor) -> None:
     if images.dtype != torch.uint8 or images.dim() != 4:
         raise ValueError(
             f"images must be [G, C, H, W] uint8, got {tuple(images.shape)} "
@@ -70,6 +71,15 @@ def _check(images: torch.Tensor, weights: torch.Tensor, shifts: torch.Tensor):
         raise ValueError("shift_blend needs contiguous operands")
 
 
+def clip_shifts(shifts: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[G, 2] (dx, dy) clipped to [-w, w] x [-h, h]: shifts past the image
+    size saturate the clamp, and clipping them first keeps y+dy and x+dx
+    inside int32 (blend_xla.shift_axis_clamped)."""
+    return torch.stack(
+        [shifts[:, 0].clamp(-w, w), shifts[:, 1].clamp(-h, h)], dim=1
+    ).contiguous()
+
+
 def shift_blend(
     images: torch.Tensor,  # [G, C, H, W] uint8
     weights: torch.Tensor,  # [V, G] float32
@@ -77,7 +87,7 @@ def shift_blend(
 ) -> torch.Tensor:
     """Fixed-focus render -> [V, C, H, W] uint8 (kernel on CUDA tensors)."""
     global launches
-    _check(images, weights, shifts)
+    check_operands(images, weights, shifts)
     if images.device.type == "cpu":
         return shift_blend_reference(images, weights, shifts)
     if images.device.type != "cuda":
@@ -93,11 +103,7 @@ def shift_blend(
             f"the kernel takes at most {lib.lfi_shift_blend_max_grid()} "
             f"grid images, got {g}"
         )
-    # Shifts past the image size saturate the clamp; clipping them first
-    # keeps y+dy and x+dx inside int32 (blend_xla.shift_axis_clamped).
-    clipped = torch.stack(
-        [shifts[:, 0].clamp(-w, w), shifts[:, 1].clamp(-h, h)], dim=1
-    ).contiguous()
+    clipped = clip_shifts(shifts, h, w)
     with torch.cuda.device(images.device):
         out = torch.empty((v, c, h, w), dtype=torch.uint8, device=images.device)
         stream = torch.cuda.current_stream(images.device).cuda_stream

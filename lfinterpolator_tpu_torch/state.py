@@ -3,7 +3,7 @@
 ``render_params`` builds a fixed-focus render's host arrays -- the
 fp16-quantized weight matrix and the integer focused offsets
 (``lfinterpolator_tpu/api.py:593-611``) -- and ``allfocus_params`` an
-all-in-focus render's (``api.py:593-637``), both with the JAX package's
+all-in-focus render's (``api.py:593-693``), both with the JAX package's
 NumPy-only geometry. The upload functions take those arrays and the decoded
 RGBA stack of a ``LightField`` as numpy and upload them in the layout the
 port's kernels read. As in ``api.py:239-251``, alpha is dropped and the
@@ -26,6 +26,9 @@ import numpy as np
 import torch
 from lfinterpolator_tpu.core import geometry
 from lfinterpolator_tpu.core.config import RenderConfig
+
+from .ops import estimate_geometry
+from .ops.estimate_geometry import Pyramid
 
 
 def render_params(
@@ -101,6 +104,14 @@ class AllFocusParams:
     radius: tuple[int, int]  # (rx, ry) stencil spacing of the search
     filter_radius: tuple[int, int]  # (rx, ry) of the map's box filter
     tables: FocusTables
+    # The JAX package's shift pad (px, py), max(shift_pad_bound, radius + 1),
+    # and its per-chunk shift spans: they fix the pyramid's geometry.
+    pad: tuple[int, int]
+    spans: tuple[int, int]
+    # The coarse-to-fine estimate's plan when the config asks for it
+    # (focus_pyramid, exact taps) and the geometry takes it; None: the
+    # exact sweep runs (focus.py:186-201).
+    pyramid: Pyramid | None
 
 
 def allfocus_params(
@@ -112,25 +123,43 @@ def allfocus_params(
     width: int,
     config: RenderConfig,
 ) -> AllFocusParams:
-    """An all-in-focus render's host arrays, as ``api.py:593-637`` builds
-    them (the focus, range, effect, aspect and counts come from `config`)."""
+    """An all-in-focus render's host arrays, as ``api.py:593-693`` builds
+    them (the focus, range, effect, aspect, counts and the pyramid flag come
+    from `config`). The pad and spans take every grid image's offset, as
+    there, not only the focus views'."""
     start_end, wm, offsets = _weights_and_offsets(
         trajectory, cols, rows, height, width, config.effect, config.aspect,
         config.view_count,
     )
     radius = geometry.block_radius(width, height, config.pixel_size_factor)
+    focus_ids = geometry.select_focus_views(
+        start_end, cols, rows, config.focus_map_views
+    )
+    px, py = estimate_geometry.shift_pad_bound(
+        offsets, config.focus, config.focus_range, radius, height, width
+    )
+    pad = (max(px, radius[0] + 1), max(py, radius[1] + 1))
+    spans = estimate_geometry.chunk_spans(
+        offsets, config.focus, config.focus_range, config.focus_steps, 4
+    )
+    pyramid = None
+    if config.focus_pyramid and config.exact_focus_taps:
+        pyramid = estimate_geometry.pyramid_plan(
+            height, width, len(focus_ids), config.focus_steps, radius, spans, pad
+        )
     return AllFocusParams(
         weights=wm,
         offsets=offsets,
-        focus_ids=geometry.select_focus_views(
-            start_end, cols, rows, config.focus_map_views
-        ),
+        focus_ids=focus_ids,
         radius=radius,
         filter_radius=(
             radius[0] // config.filter_radius_divisor,
             radius[1] // config.filter_radius_divisor,
         ),
         tables=focus_tables(config.focus, config.focus_range, config.focus_steps),
+        pad=pad,
+        spans=spans,
+        pyramid=pyramid,
     )
 
 

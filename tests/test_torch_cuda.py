@@ -1,8 +1,10 @@
 """Tests of the port that need a CUDA device: the hand-written kernels
-(shift_blend, focus_estimate with both tap rules, allfocus_blend) against
-their plain PyTorch versions and the NumPy oracle, through the wrappers and
-through the Interpolator. Tolerance: bit-equal throughout (maps are
-argmin bytes; the blends sum exact products in the oracle's order).
+(shift_blend and its quilt instantiation, focus_estimate with both tap
+rules and the presence-predicated refine pass, allfocus_blend, the quilt
+tile copy) against their plain PyTorch versions and the NumPy oracle,
+through the wrappers and through the Interpolator. Tolerance: bit-equal
+throughout (maps are argmin bytes; the blends sum exact products in the
+oracle's order; the tile copy moves bytes).
 
 Each test takes the `cuda_device` fixture, which skips without a card.
 This file imports no jax, so it also runs on a GPU host that has none:
@@ -17,7 +19,9 @@ import torch
 from lfinterpolator_tpu.core import geometry
 from lfinterpolator_tpu.io.loader import LightField
 from lfinterpolator_tpu.ops import reference
-from lfinterpolator_tpu_torch.ops import allfocus_blend, focus_estimate, shift_blend
+from lfinterpolator_tpu_torch.ops import (
+    allfocus_blend, focus_estimate, focus_torch, quilt, quilt_torch, shift_blend)
+from lfinterpolator_tpu_torch.ops.estimate_geometry import Pyramid
 from lfinterpolator_tpu_torch.state import FocusTables, focus_tables, to_device_state
 
 torch.set_num_threads(1)
@@ -309,3 +313,196 @@ def test_interpolator_allfocus_on_cuda_equals_cpu(method, exact, cuda_device):
     np.testing.assert_array_equal(got.maps, want.maps)
     np.testing.assert_array_equal(got.views, want.views)
     assert len(got.run_times_s) == 2 and got.avg_ms > 0
+
+
+def _masked_oracle(images, offsets, ids, cands, cand_bytes, radius, present):
+    """reference.focus_map_estimate's search with a per-pixel candidate
+    mask: a candidate that is not present never updates the best."""
+    views = images[ids][..., :3].astype(np.int64)
+    k, h, w = views.shape[:3]
+    rx, ry = radius
+    ys = np.arange(h, dtype=np.float32)[:, None]
+    xs = np.arange(w, dtype=np.float32)[None, :]
+    best = np.full((h, w), np.iinfo(np.int64).max)
+    best_i = np.zeros((h, w), dtype=np.int64)
+    for i, f in enumerate(cands):
+        lo = np.full((9, h, w, 3), 255, dtype=np.int64)
+        hi = np.zeros((9, h, w, 3), dtype=np.int64)
+        for v in range(k):
+            cy = np.trunc(ys + f * offsets[ids[v], 1]).astype(np.int64)
+            cx = np.trunc(xs + f * offsets[ids[v], 0]).astype(np.int64)
+            for t, (sy, sx) in enumerate((a, b) for a in (-ry, 0, ry) for b in (-rx, 0, rx)):
+                px = views[v][np.clip(cy + sy, 0, h - 1), np.clip(cx + sx, 0, w - 1)]
+                lo[t] = np.minimum(lo[t], px)
+                hi[t] = np.maximum(hi[t], px)
+        cost = (hi - lo).max(axis=-1).sum(axis=0)
+        better = (cost < best) & present[i]
+        best = np.where(better, cost, best)
+        best_i = np.where(better, i, best_i)
+    return cand_bytes[best_i]
+
+
+# (cols, rows, H, W, K, steps, radius, tb, wco, sc): presence grains of the
+# JAX package's shapes (tb a multiple of 8, wco of 128) and smaller ones
+PRESENCE = [
+    (4, 4, 40, 300, 8, 8, (4, 2), 16, 128, 4),
+    (4, 4, 37, 53, 5, 6, (4, 2), 8, 32, 2),
+    (8, 8, 48, 96, 32, 32, (2, 2), 24, 64, 4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case", PRESENCE, ids=lambda c: f"{c[2]}x{c[3]}_k{c[4]}_s{c[5]}_tb{c[7]}_wco{c[8]}"
+)
+def test_presence_estimate_matches_plain_version_and_oracle(case, cuda_device):
+    cols, rows, h, w, k, steps, radius, tb, wco, sc = case
+    images, offsets, ids = _estimate_case(cols, rows, h, w, k, steps, 0.1, 0.5, radius)
+    plan = Pyramid(scale=2, refine=1, radius_c=(1, 1), tb=tb, wco=wco, sc=sc,
+                   nb=-(-h // tb), n_wc=-(-w // wco))
+    rng = np.random.default_rng(7)
+    pres = rng.integers(0, 2**sc, (plan.nb, plan.n_wc, -(-steps // sc)),
+                        dtype=np.int32)
+    selected = _t(images[ids][..., :3].transpose(0, 3, 1, 2), cuda_device)
+    tables = _tables(0.1, 0.5, steps, cuda_device)
+    args = (selected, _t(offsets[ids], cuda_device), tables, radius)
+    before = dict(focus_estimate.launches)
+    got = focus_estimate.focus_estimate(*args, True, _t(pres, cuda_device), plan)
+    torch.cuda.synchronize()
+    assert focus_estimate.launches == {**before, "pyramid": before["pyramid"] + 1}
+    plain = focus_torch.estimate_presence(*args, _t(pres, cuda_device), plan)
+    assert torch.equal(got, plain)
+    present = focus_torch.expand_presence(
+        torch.from_numpy(pres), plan, steps, h, w).numpy()
+    t = focus_tables(0.1, 0.5, steps)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        _masked_oracle(images, offsets, ids, t.candidates, t.candidate_bytes,
+                       radius, present),
+    )
+    # every candidate present: the exact sweep
+    full = torch.full_like(_t(pres, cuda_device), 2**sc - 1)
+    assert torch.equal(focus_estimate.focus_estimate(*args, True, full, plan),
+                       focus_estimate.focus_estimate(*args))
+
+
+@pytest.mark.cuda
+def test_presence_estimate_rejects_what_the_kernel_does_not_take(cuda_device):
+    images, offsets, ids = _estimate_case(2, 2, 16, 64, 2, 4, 0.1, 0.3, (2, 2))
+    args = (_t(images[ids][..., :3].transpose(0, 3, 1, 2), cuda_device),
+            _t(offsets[ids], cuda_device), _tables(0.1, 0.3, 4, cuda_device), (2, 2))
+    plan = Pyramid(2, 1, (1, 1), tb=8, wco=32, sc=4, nb=2, n_wc=2)
+    pres = torch.ones((2, 2, 1), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="exact taps"):
+        focus_estimate.focus_estimate(*args, False, pres, plan)
+    with pytest.raises(ValueError, match=r"pres must be \[2, 2, 1\] int32"):
+        focus_estimate.focus_estimate(*args, True, pres[:1], plan)
+    with pytest.raises(RuntimeError, match="lfi_focus_estimate_pres launch failed"):
+        # a block height that is not a multiple of the kernel's 8 rows
+        odd = plan._replace(tb=4, nb=4)
+        focus_estimate.focus_estimate(
+            *args, True, torch.ones((4, 2, 1), dtype=torch.int32, device=cuda_device), odd)
+
+
+def _montage(tiles, cols, rows):
+    """[N, H, W, C] -> [rows*H, cols*W, C], tile i at (i // cols, i % cols)."""
+    h, w, c = tiles.shape[1:]
+    out = np.zeros((rows * h, cols * w, c), tiles.dtype)
+    for i in range(cols * rows):
+        r, cl = divmod(i, cols)
+        out[r * h:(r + 1) * h, cl * w:(cl + 1) * w] = tiles[i]
+    return out
+
+
+# (cols, rows, H, W, quilt cols, quilt rows, focus)
+QUILTS = [
+    (4, 4, 48, 64, 5, 9, 0.25),
+    (3, 5, 45, 70, 2, 3, -0.6),
+    (8, 8, 24, 136, 5, 9, 4.0),
+    (2, 2, 9, 300, 7, 2, 0.1),  # 14 views: the half-width tail chunk
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QUILTS, ids=lambda c: f"{c[2]}x{c[3]}_{c[4]}x{c[5]}")
+def test_quilt_blend_matches_plain_version_and_oracle(case, cuda_device):
+    cols, rows, h, w, qc, qr, focus = case
+    images, wm, fo = _scene(cols, rows, h, w, 64, focus)
+    args = to_device_state(images, wm, fo, cuda_device)
+    before = dict(quilt.launches)
+    got = quilt.quilt_blend(*args, qc, qr)
+    torch.cuda.synchronize()
+    assert quilt.launches == {**before, "quilt_blend": before["quilt_blend"] + 1}
+    assert got.shape == (3, qr * h, qc * w)
+    assert torch.equal(got, quilt.quilt_blend_reference(*args, qc, qr))
+    want = _montage(reference.blend_fixed(images, wm[: qc * qr], fo), qc, qr)
+    np.testing.assert_array_equal(got.permute(1, 2, 0).cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(45, 3, 48, 64), (6, 3, 45, 70), (50, 1, 9, 301)],
+                         ids=["aligned", "odd", "bytes"])
+def test_quilt_copy_matches_plain_version_and_oracle(shape, cuda_device):
+    cols, rows = (2, 3) if shape[0] == 6 else (5, 9)
+    tiles = np.random.default_rng(2).integers(0, 256, shape, dtype=np.uint8)
+    t = _t(tiles, cuda_device)
+    before = dict(quilt.launches)
+    got = quilt.quilt_copy(t, cols, rows)
+    torch.cuda.synchronize()
+    assert quilt.launches == {**before, "quilt_copy": before["quilt_copy"] + 1}
+    assert torch.equal(got, quilt_torch.montage(t, cols, rows))
+    np.testing.assert_array_equal(
+        got.permute(1, 2, 0).cpu().numpy(),
+        _montage(tiles.transpose(0, 2, 3, 1), cols, rows))
+    with pytest.raises(ValueError, match="Quilt needs 45 views"):
+        quilt.quilt_copy(t[:44] if shape[0] >= 45 else t, 5, 9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kw", [dict(method="TEN"), dict(method="STD"), dict(method="TEN", focus_range=0.3),
+           dict(method="TEN", tile_size=(20, 40))],
+    ids=["fused", "std", "allfocus", "resized"])
+def test_render_quilt_on_cuda_equals_cpu(kw, cuda_device):
+    from lfinterpolator_tpu.core.config import RenderConfig
+    from lfinterpolator_tpu_torch.api import Interpolator
+
+    images, _, _ = _scene(4, 4, 48, 64, 1, 0.0)
+    lf = LightField(images, 4, 4)
+    cfg = RenderConfig(focus_map_views=8, focus_steps=8)
+    before = dict(quilt.launches)
+    got = Interpolator(lf, config=cfg, device=cuda_device, progress=False
+                       ).render_quilt("0,0,1,1", focus=0.1, progress=False, **kw)
+    fused = kw == dict(method="TEN")
+    assert got.fused is fused
+    key, other = ("quilt_blend", "quilt_copy") if fused else ("quilt_copy", "quilt_blend")
+    assert quilt.launches[key] == before[key] + 1
+    assert quilt.launches[other] == before[other]
+    want = Interpolator(lf, config=cfg, device="cpu", progress=False
+                        ).render_quilt("0,0,1,1", focus=0.1, progress=False, **kw)
+    if "tile_size" in kw:  # the resize's f32 matmul sums in cuBLAS's order
+        assert np.abs(got.quilt.astype(int) - want.quilt.astype(int)).max() <= 1
+    else:
+        np.testing.assert_array_equal(got.quilt, want.quilt)
+
+
+@pytest.mark.cuda
+def test_interpolator_pyramid_on_cuda_equals_cpu(cuda_device):
+    from lfinterpolator_tpu.core.config import RenderConfig
+    from lfinterpolator_tpu_torch.api import Interpolator
+
+    images, _, _ = _scene(4, 4, 40, 512, 1, 0.0)
+    lf = LightField(images, 4, 4)
+    cfg = RenderConfig(focus_map_views=8, focus_steps=8, focus_pyramid=True)
+    before = dict(focus_estimate.launches)
+    got = Interpolator(lf, config=cfg, device=cuda_device, progress=False
+                       ).interpolate("0,0,1,1", focus=0.1, focus_range=0.3,
+                                     method="TEN", progress=False)
+    # the coarse pass on the exact kernel, the refine on the predicated one
+    assert focus_estimate.launches["exact"] == before["exact"] + 1
+    assert focus_estimate.launches["pyramid"] == before["pyramid"] + 1
+    want = Interpolator(lf, config=cfg, device="cpu", progress=False
+                        ).interpolate("0,0,1,1", focus=0.1, focus_range=0.3,
+                                      method="TEN", progress=False)
+    np.testing.assert_array_equal(got.maps, want.maps)
+    np.testing.assert_array_equal(got.views, want.views)

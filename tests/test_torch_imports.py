@@ -43,8 +43,8 @@ def test_package_imports_no_jax_and_builds_nothing(tmp_path):
         from lfinterpolator_tpu_torch.io import LightField
         from lfinterpolator_tpu_torch.models import pipeline
         from lfinterpolator_tpu_torch.ops import (
-            _build, allfocus_blend, blend_torch, focus_estimate, focus_torch,
-            shift_blend)
+            _build, allfocus_blend, blend_torch, estimate_geometry, focus_estimate,
+            focus_torch, quilt, quilt_torch, shift_blend)
         from lfinterpolator_tpu_torch.utils import profiling
         assert pkg.Interpolator is Interpolator
         rng = np.random.default_rng(0)
@@ -57,6 +57,16 @@ def test_package_imports_no_jax_and_builds_nothing(tmp_path):
             res = interp.interpolate("0,0,1,1", focus=0.1, focus_range=0.3,
                                      method=method, progress=False)
             assert res.views.shape == (64, 8, 12, 3) and res.maps.shape == (2, 8, 12)
+            q = interp.render_quilt("0,0,1,1", method=method, progress=False)
+            assert q.quilt.shape == (72, 60, 3)
+        res.save_quilt("quilt.png", tile_size=(4, 6))
+        # the pyramid at a width it takes: 4 focus views, 8 candidates
+        lf = LightField(rng.integers(0, 256, (4, 16, 512, 4), dtype=np.uint8), 2, 2)
+        interp = Interpolator(lf, device="cpu", progress=False, config=pkg.RenderConfig(
+            focus_map_views=4, focus_steps=8, focus_pyramid=True))
+        res = interp.interpolate("0,0,1,1", focus=0.1, focus_range=0.3,
+                                 method="TEN", progress=False)
+        assert res.maps.shape == (2, 16, 512)
         bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))]
         assert not bad, bad
         print("OK")
@@ -117,7 +127,7 @@ def test_build_command_targets_hopper_from_repo_sources(tmp_path, monkeypatch):
     assert sorted(srcs) == _build.sources() and len(srcs) == len(compiles)
     assert all(s.startswith(os.path.join(ROOT, "lfinterpolator_tpu_torch", "csrc"))
                for s in srcs)
-    assert {"shift_blend.cu", "allfocus_blend.cu", "focus_estimate.cu"} <= {
+    assert {"shift_blend.cu", "allfocus_blend.cu", "focus_estimate.cu", "quilt.cu"} <= {
         os.path.basename(s) for s in srcs}
     # the compiles run in parallel, so they log in any order
     assert sorted(a for a in link if a.endswith(".o")) == sorted(

@@ -118,8 +118,9 @@ def test_cli_matches_jax_cli(scene_dir, small_lf, tmp_path, capsys):
         ({"-m": "WHAT"}, "interpolation method"),
         ({"-t": "0,0,1"}, "4 comma-separated values"),
         ({"-i": "/nonexistent/scene"}, "does not exist"),
-        ({"-r": "0.3", "--focus-pyramid": None}, "not yet ported (ROADMAP slice 2b)"),
-        ({"--quilt": None}, "not yet ported (ROADMAP slice 3)"),
+        # the pyramid runs now; 16 grid images still cannot feed 32 focus views
+        ({"-r": "0.3", "--focus-pyramid": None}, "needs at least 32 grid images"),
+        ({"--quilt": None, "--quilt-tile": "0x9"}, "Bad --quilt-tile '0x9'"),
         # 16 grid images cannot feed the default 32 focus views
         ({"-r": "0.3", "--fast-focus": None}, "needs at least 32 grid images"),
     ],
@@ -158,10 +159,11 @@ def test_not_ported_parts_raise(small_lf):
     images, (cols, rows) = small_lf
     interp = Interpolator(LightField(images, cols, rows), device="cpu",
                           config=RenderConfig(focus_pyramid=True), progress=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 2b"):
+    # ported now: the pyramid flag (here the exact sweep: 16 images cannot
+    # feed the default 32 focus views) and quilts
+    with pytest.raises(ValueError, match="needs at least 32 grid images"):
         interp.interpolate("0,0,1,1", focus_range=0.3, progress=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 3"):
-        interp.render_quilt("0,0,1,1")
+    assert interp.render_quilt("0,0,1,1", progress=False).quilt.shape == (432, 320, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP slice 4"):
         interp.interpolate_batch(["0,0,1,1"])
     with pytest.raises(ValueError, match="does not exist"):
