@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's fixed-focus, all-in-focus (exact and coarse-to-fine)
-and quilt renders (lfinterpolator_tpu_torch) at the headline size -- an
+Drives the port's fixed-focus, all-in-focus (exact and coarse-to-fine),
+quilt, batched, view-batched and streamed renders (lfinterpolator_tpu_torch)
+at the headline size -- an
 8x8 grid of 1080x1920 images, 64 views; all in focus with K = 32 focus
 views, 32 candidates, stencil radius (20, 10); quilts of 5x9 tiles --
 through the kernel wrappers, the Interpolator API and the CLI. Phases, in
@@ -53,10 +54,36 @@ order; any failure raises and the script exits non-zero:
      rendered views;
  18. the CLI with --quilt-only and --quilt at a quarter of the resolution,
      and with -r 0.3 --focus-pyramid at half: PNGs equal to the API's;
- 19. the kernels line, then the last line: {"ok": true, "device": {...}}.
+ 19. the download of one 64-view frame: pageable, a kept pinned buffer
+     plus a copy out of it, the port's Downloader (pinned memory per
+     download from the caching host allocator, utils/transfer.py), and the
+     pinned copy alone;
+ 20. the streaming TEN path (K2's counterpart): 8 frames, each a roll of
+     the seeded stack, prefetch 2, two passes (the first also allocates
+     the pinned buffers); every frame torch.equal to the plain version on
+     the card, shift_blend launched once a frame; the second pass's fps
+     beside
+     the serial sum of the host copy into pinned memory, upload, render
+     and download, each measured alone;
+ 21. the all-focus stream, 3 frames at map refresh 1 and 2: equal to the
+     Interpolator's renders, the first frame also to the plain pipeline;
+ 22. render_to_dir at a quarter of the resolution: its PNGs decode equal
+     to the stream's views;
+ 23. interpolate_batch at full size, 5 trajectories of 2 centers, fixed
+     and all in focus: each result equal to its solo render, one blend
+     and one estimate per group counted by launches;
+ 24. a forced view-batched render at full size (LFI_HBM_BYTES, >= 3
+     batches), fixed and all in focus: equal to the one-pass render;
+ 25. the library yardsticks (library_ms): the blends' contraction alone as
+     one torch.matmul (fp16; f32 with TF32 off), the tile copy as one
+     permute().contiguous();
+ 26. no module of jax or of the JAX package is loaded;
+ 27. the kernels line (each kernel's time, plain time, bound and library
+     time), then the last line: {"ok": true, "device": {...}}.
 
 Exits 1 at once when no CUDA device is present. Needs one GPU, no network.
-Imports only the port (lfinterpolator_tpu_torch), never jax.
+Imports only the port (lfinterpolator_tpu_torch), never jax nor the JAX
+package.
 """
 
 from __future__ import annotations
@@ -802,6 +829,361 @@ def phase18_cli(torch, np, lf) -> None:
          view_files(np, af.views, af.maps))])
 
 
+# H100 SXM peaks (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"fp16": 989e12, "int8": 1979e12}
+
+
+def bound(nbytes: float, ops: float, ops_type: str) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over the memory rate
+    and the operations over the peak rate of their type."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[ops_type] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def wall_ms(torch, fn, runs: int = 3) -> tuple[list, object]:
+    """Host-clock ms of `runs` calls of fn, each ending in a synchronize."""
+    times, out = [], None
+    for _ in range(runs):
+        out = None  # the last result is released before the next call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, out
+
+
+def fmt(times) -> str:
+    return "/".join(f"{t:.1f}" for t in times)
+
+
+def phase19_download(torch, np, lf, smi) -> dict:
+    """The download of one 64-view headline frame (398 MB), four ways:
+    pageable .cpu() of the [V, H, W, C] copy; a pinned buffer kept and
+    reused, plus the copy out of it into a fresh array; the port's
+    Downloader, pinned memory per download from PyTorch's caching host
+    allocator handed to the caller (first call, then with each result
+    dropped, then with every result kept); and the pinned copy alone."""
+    from lfinterpolator_tpu_torch.ops import blend_torch, shift_blend
+    from lfinterpolator_tpu_torch.state import to_device_state
+    from lfinterpolator_tpu_torch.utils import transfer
+
+    wm, fo = weights_and_shifts(COLS, ROWS, H, W, 0.1)
+    images, weights, shifts = to_device_state(lf.images, wm, fo, "cuda")
+    views = shift_blend.shift_blend(images, weights, shifts)
+    del images
+    hwc = blend_torch.from_planar(views)
+    pageable_t, pageable = wall_ms(torch, lambda: hwc.cpu().numpy())
+    kept = torch.empty(hwc.shape, dtype=torch.uint8, pin_memory=True)
+    kept_t, _ = wall_ms(torch, lambda: kept.copy_(hwc).numpy().copy())
+    d2h = event_ms(torch, lambda: kept.copy_(hwc, non_blocking=True), runs=5)
+    del kept
+    dl = transfer.Downloader("cuda")
+    first_t, got = wall_ms(torch, lambda: dl.start(views).wait(), runs=1)
+    if not np.array_equal(pageable, got):
+        raise AssertionError("the pinned download != the pageable one")
+    del got, pageable
+    reused_t, _ = wall_ms(torch, lambda: dl.start(views).wait(), runs=4)
+    held = []
+    fresh_t, _ = wall_ms(torch, lambda: held.append(dl.start(views).wait()), runs=3)
+    del held
+    gb = hwc.numel() / 1e9
+    log(f"[19] download of a 64-view frame ({gb:.3f} GB): pageable .cpu() {fmt(pageable_t)} "
+        f"ms; a kept pinned buffer + copy-out {fmt(kept_t)} ms; the Downloader (pinned "
+        f"per download, cached) first call {fmt(first_t)} ms, result dropped each call "
+        f"{fmt(reused_t)} ms, results kept {fmt(fresh_t)} ms; the pinned copy alone "
+        f"{d2h:.3f} ms ({gb / d2h * 1e3:.1f} GB/s) ({smi})")
+    return {"pageable_ms": pageable_t, "kept_buffer_copy_out_ms": kept_t,
+            "downloader_first_ms": first_t[0], "downloader_reused_ms": reused_t,
+            "downloader_kept_results_ms": fresh_t, "d2h_pinned_ms": d2h}
+
+
+def phase20_stream(torch, np, stack, smi) -> dict:
+    """The streaming TEN path: 8 headline frames, each a roll of the seeded
+    stack, prefetch 2. Every frame torch.equal to the plain version on the
+    card; shift_blend launched once a frame; fps beside the serial sum of
+    the host copy into pinned memory, upload, render and download, each
+    measured alone."""
+    from lfinterpolator_tpu_torch import RenderConfig, StreamingRenderer
+    from lfinterpolator_tpu_torch.ops import blend_torch, shift_blend
+    from lfinterpolator_tpu_torch.utils import transfer
+
+    frames = [np.roll(stack, 16 * t, axis=2) for t in range(8)]
+    sr = StreamingRenderer(COLS, ROWS, W, H, TRAJECTORY, prefetch=2,
+                           config=RenderConfig(method="TEN", focus=0.1))
+
+    def stream_s() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in sr.render_stream(frames):  # a consumer that drops each frame
+            pass
+        return time.perf_counter() - t0
+
+    # The first pass also allocates the pinned input buffers and the
+    # pinned outputs the host allocator caches for the next frames.
+    shift_blend.launches = 0  # count only the main path's launches
+    first = stream_s()
+    total = stream_s()
+    launches = shift_blend.launches
+    if launches != 2 * len(frames):
+        raise AssertionError(f"{launches} shift_blend launches for 2 x {len(frames)} frames")
+    outs = list(sr.render_stream(frames))  # again, kept for the check
+    max_err = 0
+    for t, (frame, out) in enumerate(zip(frames, outs)):
+        planar = blend_torch.to_planar(torch.from_numpy(frame).cuda())
+        want = blend_torch.from_planar(
+            shift_blend.shift_blend_reference(planar, sr.weights, sr.shifts))
+        got = torch.from_numpy(out).cuda()
+        max_err = max(max_err, check_equal(torch, f"streamed frame {t}", got, want))
+        del planar, want, got
+    # each stage alone on one frame; the decode thread's host copy into a
+    # pinned input buffer, as the stream makes it (torch's copy_) and on
+    # one core (np.copyto)
+    pinned = torch.from_numpy(frames[0]).pin_memory()
+    host_t, _ = wall_ms(torch, lambda: pinned.copy_(torch.from_numpy(frames[1])))
+    host_np_t, _ = wall_ms(torch, lambda: np.copyto(pinned.numpy(), frames[1]))
+    host_ms = sum(host_t) / len(host_t)
+    dev = torch.empty(pinned.shape, dtype=torch.uint8, device="cuda")
+    upload_ms = event_ms(torch, lambda: dev.copy_(pinned, non_blocking=True), runs=5)
+    planar = blend_torch.to_planar(dev)
+    render_ms = event_ms(torch, lambda: shift_blend.shift_blend(
+        blend_torch.to_planar(dev), sr.weights, sr.shifts), runs=5)
+    kernel_ms = event_ms(torch, lambda: shift_blend.shift_blend(planar, sr.weights, sr.shifts))
+    plain_ms = event_ms(torch, lambda: shift_blend.shift_blend_reference(
+        planar, sr.weights, sr.shifts), runs=3)
+    views = shift_blend.shift_blend(planar, sr.weights, sr.shifts)
+    dl = transfer.Downloader("cuda")
+    dl.start(views).wait()
+    download_t, _ = wall_ms(torch, lambda: dl.start(views).wait())
+    download_ms = sum(download_t) / len(download_t)
+    serial = host_ms + upload_ms + render_ms + download_ms
+    fps, first_fps = len(frames) / total, len(frames) / first
+    log(f"[20] stream of {len(frames)} TEN frames (8x8/1080p/64v, prefetch 2): {fps:.3f} fps, "
+        f"{1e3 / fps:.1f} ms/frame (first pass {first_fps:.3f} fps); "
+        f"alone: host copy into pinned {fmt(host_t)} ms ({torch.get_num_threads()} threads; "
+        f"np.copyto {fmt(host_np_t)} ms), upload {upload_ms:.3f} ms, render (planar copy + "
+        f"shift_blend) {render_ms:.3f} ms, download {download_ms:.1f} ms, serial sum "
+        f"{serial:.1f} ms; every frame == the plain version; shift_blend launches {launches} "
+        f"in 2 passes; kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms ({smi})")
+    del frames, outs, pinned, dev, planar, views, sr
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "fps": fps, "first_pass_fps": first_fps,
+            "ms_per_frame": 1e3 / fps,
+            "host_copy_ms": host_ms, "host_copy_np_ms": sum(host_np_t) / len(host_np_t),
+            "upload_ms": upload_ms, "render_ms": render_ms, "download_ms": download_ms}
+
+
+def phase21_allfocus_stream(torch, np, lf, smi) -> dict:
+    """The all-focus stream, 3 frames (rolls of the seeded light field),
+    map refresh 1 and 2: each frame equal to the Interpolator's render of
+    it (refresh 2: frame 1 blends with frame 0's maps); the first frame
+    also against the plain pipeline."""
+    from lfinterpolator_tpu_torch import RenderConfig, StreamingRenderer
+    from lfinterpolator_tpu_torch.api import Interpolator
+    from lfinterpolator_tpu_torch.io import LightField
+    from lfinterpolator_tpu_torch.models import pipeline
+    from lfinterpolator_tpu_torch.ops import blend_torch, focus_torch
+
+    frames = [np.roll(lf.images, 24 * t, axis=2) for t in range(3)]
+    solo = []
+    for f in frames:
+        interp = Interpolator(LightField(f, COLS, ROWS), device="cuda", progress=False)
+        res = interp.interpolate(TRAJECTORY, focus=0.1, focus_range=0.3, method="TEN",
+                                 progress=False)
+        solo.append((res.views, res.maps))
+        del interp
+    fps = {}
+    for refresh in (1, 2):
+        sr = StreamingRenderer(COLS, ROWS, W, H, TRAJECTORY, prefetch=2, config=RenderConfig(
+            method="TEN", focus=0.1, focus_range=0.3, focus_map_refresh=refresh))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = list(sr.render_stream(frames))
+        fps[refresh] = len(frames) / (time.perf_counter() - t0)
+        for t, (views, maps) in enumerate(outs):
+            if t % refresh == 0:
+                ok = np.array_equal(views, solo[t][0]) and np.array_equal(maps, solo[t][1])
+            else:  # the maps of frame t - 1, blended with frame t
+                images = blend_torch.to_planar(torch.from_numpy(frames[t]).cuda())
+                want = pipeline.blend_all_focus(
+                    images, sr.weights, sr._offsets, torch.from_numpy(solo[t - 1][1]).cuda(),
+                    sr._tables.decode, method="TEN")
+                ok = (np.array_equal(maps, solo[t - 1][1]) and np.array_equal(
+                    views, blend_torch.from_planar(want).cpu().numpy()))
+                del images, want
+            if not ok:
+                raise AssertionError(f"all-focus stream, refresh {refresh}, frame {t} "
+                                     "!= the Interpolator's render")
+        if refresh == 1:  # the first frame against the plain pipeline
+            p = sr._params
+            images = blend_torch.to_planar(torch.from_numpy(frames[0]).cuda())
+            map0 = focus_torch.estimate_focus_map(images[sr._ids], sr._offsets[sr._ids],
+                                                  sr._tables, p.radius)
+            map1 = focus_torch.filter_focus_map(map0, p.filter_radius)
+            views = blend_torch.render_allfocus(images, sr.weights, sr._offsets, map0,
+                                                sr._tables.decode)
+            if not (np.array_equal(outs[0][1][0], map0.cpu().numpy())
+                    and np.array_equal(outs[0][1][1], map1.cpu().numpy())
+                    and np.array_equal(outs[0][0], blend_torch.from_planar(views).cpu().numpy())):
+                raise AssertionError("the first all-focus frame != the plain pipeline")
+            del images, map0, map1, views
+        del sr, outs
+        torch.cuda.empty_cache()
+    log(f"[21] all-focus stream of 3 TEN frames: refresh 1 {fps[1]:.3f} fps, refresh 2 "
+        f"{fps[2]:.3f} fps; frames == the Interpolator's renders, frame 0 == the plain "
+        f"pipeline ({smi})")
+    return fps
+
+
+def phase22_render_to_dir(torch, np, lf) -> None:
+    """render_to_dir at a quarter of the resolution: 3 frames of 64 PNGs
+    that decode equal to the stream's views."""
+    from lfinterpolator_tpu_torch import RenderConfig, StreamingRenderer, io
+
+    frames = [np.ascontiguousarray(np.roll(lf.images, 24 * t, axis=2)[:, ::4, ::4])
+              for t in range(3)]
+    h, w = frames[0].shape[1:3]
+    sr = StreamingRenderer(COLS, ROWS, w, h, TRAJECTORY,
+                           config=RenderConfig(method="TEN", focus=0.1))
+    out = os.path.join(ROOT, "build", "smoke_stream")
+    shutil.rmtree(out, ignore_errors=True)
+    stats = sr.render_to_dir(frames, out)
+    views = list(sr.render_stream(frames))
+    for t in range(3):
+        d = os.path.join(out, f"frame_{t:05d}")
+        names = sorted(os.listdir(d))
+        if names != [f"{i:02d}.png" for i in range(VIEWS)]:
+            raise AssertionError(f"render_to_dir wrote {names[:3]}... in {d}")
+        for i, name in enumerate(names):
+            if not np.array_equal(io.decode(os.path.join(d, name))[..., :3], views[t][i]):
+                raise AssertionError(f"{d}/{name} != the stream's view")
+    shutil.rmtree(out, ignore_errors=True)
+    log(f"[22] render_to_dir: 3 frames of {VIEWS} PNGs at {w}x{h} in {stats.total_s:.1f} s "
+        f"({stats.fps:.3f} fps); they decode equal to the stream's views")
+
+
+def phase23_batch(torch, np, lf, smi) -> dict:
+    """interpolate_batch at full size: four trajectories share a center,
+    one has another; fixed TEN and all-focus TEN. Each result equals its
+    solo interpolate; one blend launch and one estimate per group."""
+    from lfinterpolator_tpu_torch.api import Interpolator
+    from lfinterpolator_tpu_torch.ops import allfocus_blend, focus_estimate, shift_blend
+
+    trajs = ["0,0,1,1", "0.2,0.2,0.8,0.8", "1,0,0,1", "0,0.5,1,0.5", "0,0,0.5,0.5"]
+    interp = Interpolator(lf, device="cuda", progress=False)
+    stats = {}
+    for name, kw, want in (
+            ("fixed", dict(focus=0.1), {"shift_blend": 2}),
+            ("all-focus", dict(focus=0.1, focus_range=0.3),
+             {"focus_estimate_exact": 2, "allfocus_blend": 2})):
+        shift_blend.launches = allfocus_blend.launches = 0  # the main path's
+        focus_estimate.launches.update(exact=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = interp.interpolate_batch(trajs, method="TEN", progress=False, **kw)
+        batch_s = time.perf_counter() - t0
+        launches = {"shift_blend": shift_blend.launches,
+                    "focus_estimate_exact": focus_estimate.launches["exact"],
+                    "allfocus_blend": allfocus_blend.launches}
+        if {k: v for k, v in launches.items() if v} != want:
+            raise AssertionError(f"{name} batch launches {launches}, expected {want}")
+        t0 = time.perf_counter()
+        for t, res in zip(trajs, batch):
+            solo = interp.interpolate(t, method="TEN", progress=False, **kw)
+            if not (np.array_equal(res.views, solo.views)
+                    and (solo.maps is None or np.array_equal(res.maps, solo.maps))):
+                raise AssertionError(f"{name} batch result for {t} != its solo render")
+        solo_s = time.perf_counter() - t0
+        stats[name] = {"batch_s": batch_s, "solo_s": solo_s, "launches": launches}
+        log(f"[23] interpolate_batch {name}, 5 trajectories (2 centers): {batch_s:.3f} s "
+            f"against {solo_s:.3f} s for the 5 solo renders, both with downloads; launches "
+            f"{launches}; every result == its solo render ({smi})")
+        del batch
+    del interp
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase24_view_batches(torch, np, lf, smi) -> dict:
+    """A forced view-batched render at full size (LFI_HBM_BYTES), fixed and
+    all in focus, of at least 3 batches: equal to the one-pass render."""
+    from lfinterpolator_tpu_torch.api import Interpolator
+    from lfinterpolator_tpu_torch.core import capacity
+    from lfinterpolator_tpu_torch.ops import allfocus_blend, shift_blend
+
+    interp = Interpolator(lf, device="cuda", progress=False)
+    budget = 700 * 10**6
+    stats = {}
+    for name, kw, k, counter in (
+            ("fixed", dict(focus=0.1), 0, lambda: shift_blend.launches),
+            ("all-focus", dict(focus=0.1, focus_range=0.3), 32,
+             lambda: allfocus_blend.launches)):
+        one_t, ref = wall_ms(torch, lambda: interp.interpolate(
+            TRAJECTORY, method="TEN", progress=False, **kw), runs=2)
+        plan = capacity.plan_render(COLS * ROWS, 3, H, W, VIEWS, method="TEN",
+                                    focus_views=k, budget=budget)
+        nb = -(-VIEWS // plan.view_batch) if plan.batched else 1
+        if nb < 3:
+            raise AssertionError(f"{name}: the forced plan has {nb} batches")
+        os.environ["LFI_HBM_BYTES"] = str(budget)
+        try:
+            before = counter()
+            batched_t, out = wall_ms(torch, lambda: interp.interpolate(
+                TRAJECTORY, method="TEN", progress=False, **kw), runs=2)
+        finally:
+            del os.environ["LFI_HBM_BYTES"]
+        if counter() - before != 2 * nb:
+            raise AssertionError(f"{name}: {counter() - before} launches for 2 x {nb} batches")
+        if not (np.array_equal(out.views, ref.views)
+                and (ref.maps is None or np.array_equal(out.maps, ref.maps))):
+            raise AssertionError(f"{name}: the view-batched render != the one-pass render")
+        stats[name] = {"batches": nb, "view_batch": plan.view_batch,
+                       "one_pass_ms": one_t, "batched_ms": batched_t}
+        log(f"[24] {name} in {nb} view batches of {plan.view_batch} (budget {budget / 1e6:.0f} "
+            f"MB beyond the stack): {fmt(batched_t)} ms per call against {fmt(one_t)} ms in "
+            f"one pass, downloads included; == the one-pass render ({smi})")
+        del ref, out
+    del interp
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase25_library(torch, np, stack, smi) -> dict:
+    """The yardsticks: one PyTorch call for each kernel's function where
+    there is one, timed here and used nowhere in the port. The blends'
+    contraction alone: torch.matmul of the [V, G] weights by a pre-shifted
+    [G, C*H*W] stack, in fp16 and in f32 with TF32 off; the tile copy: one
+    permute(...).contiguous()."""
+    from lfinterpolator_tpu_torch.ops import blend_torch
+    from lfinterpolator_tpu_torch.state import to_device_state
+
+    wm, fo = weights_and_shifts(COLS, ROWS, H, W, 0.1)
+    images, weights, shifts = to_device_state(stack, wm, fo, "cuda")
+    x16 = blend_torch.shift_stack(images, shifts).reshape(COLS * ROWS, -1).half()
+    del images
+    w16 = weights.half()
+    f16 = {v: event_ms(torch, lambda v=v: torch.matmul(w16[:v], x16)) for v in (VIEWS, 45)}
+    x32 = x16.float()
+    del x16
+    f32 = event_ms(torch, lambda: blend_torch.matmul_f32(weights, x32), runs=5)
+    del x32
+    tiles = torch.from_numpy(stack[:45]).cuda().permute(0, 3, 1, 2).contiguous()
+    copy = event_ms(torch, lambda: tiles.reshape(9, 5, 3, H, W).permute(2, 0, 3, 1, 4)
+                    .contiguous())
+    del tiles
+    torch.cuda.empty_cache()
+    log(f"[25] contraction only, torch.matmul [64, 64] x [64, {3 * H * W}]: fp16 "
+        f"{f16[VIEWS]:.3f} ms, f32 (TF32 off) {f32:.3f} ms; 45 views fp16 {f16[45]:.3f} ms; "
+        f"tile copy permute().contiguous() {copy:.3f} ms ({smi})")
+    return {"blend_fp16": f16[VIEWS], "blend_f32": f32, "quilt_fp16": f16[45],
+            "copy": copy}
+
+
 def main() -> int:
     import torch
 
@@ -845,9 +1227,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     quilt_launches = phase17_render_quilt(torch, np, lf, smi)
     phase18_cli(torch, np, lf)
-    jax_mods = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
-    if jax_mods:
-        raise AssertionError(f"the port imported jax: {jax_mods[:5]}")
+    download = phase19_download(torch, np, lf, smi)
+    stack = np.random.default_rng(SEED).integers(0, 256, (COLS * ROWS, H, W, 3),
+                                                 dtype=np.uint8)  # phase 3's
+    k2 = phase20_stream(torch, np, stack, smi)
+    af_fps = phase21_allfocus_stream(torch, np, lf, smi)
+    phase22_render_to_dir(torch, np, lf)
+    batch = phase23_batch(torch, np, lf, smi)
+    view_batches = phase24_view_batches(torch, np, lf, smi)
+    lib = phase25_library(torch, np, stack, smi)
+    del stack
+    foreign = [m for m in sys.modules if m in ("jax", "lfinterpolator_tpu")
+               or m.startswith(("jax.", "jaxlib", "lfinterpolator_tpu."))]
+    if foreign:
+        raise AssertionError(f"the port imported jax or the JAX package: {foreign[:5]}")
+    log("[26] no module of jax or of the JAX package (lfinterpolator_tpu) is loaded")
+    g, n, k, s_ = COLS * ROWS, 3 * H * W, 32, 32
+    blend_bound = bound(g * n + VIEWS * n + 4 * VIEWS * g + 8 * g, 2 * VIEWS * g * n, "fp16")
+    contraction = {"library_ms": lib["blend_fp16"], "library_f32_ms": lib["blend_f32"],
+                   "library": "torch.matmul [V, G] x [G, C*H*W] of a pre-shifted stack, "
+                              "contraction only (fp16; library_f32_ms: f32, TF32 off)"}
+    # the estimate reads the RGBx words once and writes the map; its
+    # byte-lane min/max (vminu4/vmaxu4, 3 channels, per tap, view and
+    # candidate) at the table's int8 rate
+    est_bound = bound(4 * k * H * W + H * W, 6 * 9 * k * s_ * H * W, "int8")
+    no_library = {"library_ms": None, "library": "none: no PyTorch call computes it"}
     src = "lfinterpolator_tpu_torch/csrc/"
     kernels = [
         {"name": "shift_blend", "route": "cuda", "source": src + "shift_blend.cu",
@@ -855,35 +1259,55 @@ def main() -> int:
                      "(_pshift_kernel), lfinterpolator_tpu/ops/blend_pallas.py:217 "
                      "(_blend_tiled_kernel), lfinterpolator_tpu/ops/blend_pallas.py:165 "
                      "(_blend_kernel)",
-         "launches": launches, **k3},
+         "launches": launches, **k3, **blend_bound, **contraction},
+        {"name": "shift_blend (stream)", "route": "cuda", "source": src + "shift_blend.cu",
+         "replaces": "lfinterpolator_tpu/ops/shift_pallas.py:90 (_shift_kernel)",
+         "launches": k2["launches"], "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
+         "plain_ms": k2["plain_ms"], **blend_bound, **contraction},
         {"name": "allfocus_blend", "route": "cuda", "source": src + "allfocus_blend.cu",
          "replaces": "lfinterpolator_tpu/ops/allfocus_pallas.py:102 (_af_kernel), "
                      "lfinterpolator_tpu/ops/blend_pallas.py:217 (_blend_tiled_kernel)",
-         "launches": af_launches["allfocus_blend"], **k8},
+         "launches": af_launches["allfocus_blend"], **k8,
+         **bound(g * n + VIEWS * n + 4 * VIEWS * g + 8 * g + H * W + 1024,
+                 2 * VIEWS * g * n, "fp16"), **contraction},
         {"name": "focus_estimate_exact", "route": "cuda",
          "source": src + "focus_estimate.cu",
          "replaces": "lfinterpolator_tpu/ops/estimate_pallas.py:271 (_est_kernel)",
-         "launches": af_launches["focus_estimate_exact"], **est["exact"]},
+         "launches": af_launches["focus_estimate_exact"], **est["exact"], **est_bound,
+         **no_library},
         {"name": "focus_estimate_fast", "route": "cuda",
          "source": src + "focus_estimate.cu",
          "replaces": "lfinterpolator_tpu/ops/estimate_pallas.py:587 (_est_fast_kernel)",
-         "launches": af_launches["focus_estimate_fast"], **est["fast"]},
+         "launches": af_launches["focus_estimate_fast"], **est["fast"], **est_bound,
+         **no_library},
         {"name": "focus_estimate_pyramid", "route": "cuda",
          "source": src + "focus_estimate.cu",
          "replaces": "lfinterpolator_tpu/ops/estimate_pallas.py:271 "
                      "(_est_kernel, predicated=True: :320-338, 502, 540; entries "
                      "_estimate_fused_pres :1238, estimate_fused_pyramid :1251)",
-         "launches": pyr_launches, **k9},
+         "launches": pyr_launches, **k9,
+         **bound(4 * k * H * W + H * W, 6 * 9 * k * s_ * H * W
+                 * float(pyr["random_density"].split()[0]), "int8"),
+         **no_library},
         {"name": "quilt_blend", "route": "cuda", "source": src + "shift_blend.cu",
          "replaces": "lfinterpolator_tpu/ops/blend_pallas.py:311 (_blend_quilt_kernel), "
                      "lfinterpolator_tpu/ops/shift_pallas.py:277 (_pshift_kernel)",
-         "launches": quilt_launches["quilt_blend"], **k4},
+         "launches": quilt_launches["quilt_blend"], **k4,
+         **bound(g * n + 45 * n + 4 * VIEWS * g + 8 * g, 2 * 45 * g * n, "fp16"),
+         "library_ms": lib["quilt_fp16"],
+         "library": "torch.matmul [45, G] x [G, C*H*W] fp16, contraction only"},
         {"name": "quilt_copy", "route": "cuda", "source": src + "quilt.cu",
          "replaces": "lfinterpolator_tpu/ops/quilt.py:38 (_copy_kernel)",
-         "launches": quilt_launches["quilt_copy"], **k5},
+         "launches": quilt_launches["quilt_copy"], **k5,
+         **bound(2 * 45 * n, 0, "fp16"), "library_ms": lib["copy"],
+         "library": "tiles.reshape(9, 5, C, H, W).permute(2, 0, 3, 1, 4).contiguous()"},
     ]
-    log(f"[19] predicated estimate at full size: {pyr}")
-    log(f"[19] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"[27] download {json.dumps(download)}")
+    log(f"[27] stream {json.dumps(k2)}; all-focus stream fps {json.dumps(af_fps)}")
+    log(f"[27] batch {json.dumps(batch)}")
+    log(f"[27] view batches {json.dumps(view_batches)}")
+    log(f"[27] predicated estimate at full size: {pyr}")
+    log(f"[27] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,14 +5,18 @@ package's Pallas kernels rewritten by hand in CUDA C++ for Hopper (H100).
 Load a camera-grid light field, then synthesize 64 novel views along a
 trajectory by shift-and-sum weighted blending, at a fixed focus or all in
 focus (a per-pixel focus map from a disparity search, exact or
-coarse-to-fine), as PNGs or as a Looking Glass quilt. The rest of the JAX
-package's surface follows slice by slice (ROADMAP.md).
+coarse-to-fine), as PNGs or as a Looking Glass quilt; several
+trajectories at once (``Interpolator.interpolate_batch``), renders larger
+than device memory in view batches, and video light fields frame by frame
+(``StreamingRenderer``). Meshes follow (ROADMAP.md). The package imports
+nothing of the JAX package: it keeps its own copies of the framework-free
+modules it needs (``core/``, ``io/``, ``utils/progress.py``).
 
 Importing the package imports neither jax nor torch's CUDA runtime, and
 builds nothing: the kernels compile at first use (``ops/_build.py``).
 """
 
-from lfinterpolator_tpu.core.config import RenderConfig
+from .core.config import RenderConfig
 
 __version__ = "0.1.0"
 
@@ -22,6 +26,7 @@ __all__ = [
     "RenderResult",
     "QuiltResult",
     "interpolate",
+    "StreamingRenderer",
     "__version__",
 ]
 
@@ -30,6 +35,7 @@ _LAZY = {
     "RenderResult": ("lfinterpolator_tpu_torch.api", "RenderResult"),
     "QuiltResult": ("lfinterpolator_tpu_torch.api", "QuiltResult"),
     "interpolate": ("lfinterpolator_tpu_torch.api", "interpolate"),
+    "StreamingRenderer": ("lfinterpolator_tpu_torch.streaming", "StreamingRenderer"),
 }
 
 

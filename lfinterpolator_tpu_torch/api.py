@@ -2,7 +2,8 @@
 
 Port of the single-device part of ``lfinterpolator_tpu/api.py``
 (``RenderResult``, ``QuiltResult``, ``Interpolator.__init__``/
-``interpolate``/``render_quilt``, the one-shot ``interpolate``):
+``interpolate``/``render_quilt``/``interpolate_batch``, the view-batched
+arms, the one-shot ``interpolate``):
 
     interp = Interpolator("/data/scene")            # load + upload once
     result = interp.interpolate("0,0,1,1", method="TEN", focus=0.2)
@@ -11,18 +12,20 @@ Port of the single-device part of ``lfinterpolator_tpu/api.py``
     result = interp.interpolate("0,0,1,1", focus=0.1, focus_range=0.3)
     result.save("out/")                             # + map0.png, map1.png
     interp.render_quilt("0,0,1,1", focus=0.2).save("out/quilt.png")
+    batch = interp.interpolate_batch(["0,0,1,1", "0.2,0.2,0.8,0.8"], focus=0.2)
 
 The light field is uploaded once, as a planar u8 stack, at construction.
 Each render computes its host arrays (``state.render_params`` for a
 fixed-focus render; ``state.allfocus_params`` -- weights, offsets, focus
 views, the focus tables and, with ``focus_pyramid``, the coarse-to-fine
-plan -- for an all-in-focus one) and runs the pipeline on the
-Interpolator's device. ``device="cuda"`` without a CUDA device raises;
-nothing runs on the CPU instead.
+plan -- for an all-in-focus one), sizes itself against the device's free
+memory (``core/capacity.plan_render``) and runs the pipeline on the
+Interpolator's device: in one pass, or, when the output does not fit, in
+view batches, each downloaded into pinned host memory while the next one
+renders (``_view_batched``). ``device="cuda"`` without a CUDA device
+raises; nothing runs on the CPU instead.
 
-Not ported yet (ROADMAP.md): batched trajectories, the capacity plan with
-its view-batched and row-block arms for renders larger than device memory
-(slice 4), meshes (slice 5).
+Not ported yet (ROADMAP.md): meshes (slice 5).
 """
 
 from __future__ import annotations
@@ -31,13 +34,14 @@ import dataclasses
 
 import numpy as np
 import torch
-from lfinterpolator_tpu.core.config import RenderConfig
 
 from . import state
+from .core import capacity, geometry
+from .core.config import RenderConfig
 from .io import LightField, load_light_field, write_quilt, write_views
 from .models import pipeline
 from .ops import blend_torch, quilt, quilt_torch
-from .utils import profiling
+from .utils import profiling, transfer
 
 
 @dataclasses.dataclass
@@ -75,9 +79,8 @@ class RenderResult:
         n = cols * rows
         if self.views.shape[0] < n:
             raise ValueError(f"Quilt needs {n} views, got {self.views.shape[0]}")
-        views = blend_torch.to_planar(
-            torch.from_numpy(np.ascontiguousarray(self.views[:n])).to(self.device))
-        q = quilt.assemble_quilt(views, cols, rows, tile_size)
+        q = _assemble_host_views(self.views[:n], torch.device(self.device),
+                                 cols, rows, tile_size)
         return write_quilt(path, quilt_torch.to_hwc(q).cpu().numpy())
 
 
@@ -109,15 +112,35 @@ class QuiltResult:
         return write_quilt(path, self.quilt)
 
 
-def _not_ported(what: str, slice_no: int | str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to lfinterpolator_tpu_torch "
-        f"(ROADMAP slice {slice_no})"
-    )
+def _assemble_host_views(views: np.ndarray, device: torch.device, cols: int,
+                         rows: int, tile_size) -> torch.Tensor:
+    """Host [n, H, W, 3] views -> the quilt canvas [C, rows*th, cols*tw] on
+    `device`."""
+    planar = blend_torch.to_planar(
+        torch.from_numpy(np.ascontiguousarray(views)).to(device))
+    return quilt.assemble_quilt(planar, cols, rows, tile_size)
 
 
-def _free_bytes(device: torch.device) -> int:
-    return torch.cuda.mem_get_info(device)[0]
+def _group_by_center(centers: np.ndarray, tolerance: float) -> list[list[int]]:
+    """Indices grouped by trajectory center, in order of first appearance
+    (``lfinterpolator_tpu/api.py:1024-1042``): equal centers (to 1e-5 grid
+    cells), or with `tolerance` > 0 the first earlier group whose founding
+    center lies within it (Euclidean, grid cells)."""
+    groups: dict[tuple, list[int]] = {}
+    if tolerance > 0.0:
+        reps: list[np.ndarray] = []
+        for i, c in enumerate(centers):
+            for gi, rep in enumerate(reps):
+                if float(np.hypot(*(c - rep))) <= tolerance:
+                    groups[(gi,)].append(i)
+                    break
+            else:
+                groups[(len(reps),)] = [i]
+                reps.append(c)
+    else:
+        for i, c in enumerate(centers):
+            groups.setdefault(tuple(np.round(c / 1e-5).astype(np.int64)), []).append(i)
+    return list(groups.values())
 
 
 class Interpolator:
@@ -151,7 +174,7 @@ class Interpolator:
             )
         g, h, w = self.lf.grid_size, self.lf.height, self.lf.width
         if self.device.type == "cuda":
-            need, free = g * 3 * h * w, _free_bytes(self.device)
+            need, free = g * 3 * h * w, torch.cuda.mem_get_info(self.device)[0]
             if need > free:
                 raise RuntimeError(
                     f"the {g}-image stack needs {need / 2**30:.2f} GiB of "
@@ -159,34 +182,8 @@ class Interpolator:
                 )
         # One host->device upload of the planar RGB stack (api.py:239-260).
         self.images = state.upload_images(self.lf.images, self.device)
-
-    def _check_memory(self, v: int, method_key: str, focus_views: int = 0,
-                      extra: int = 0) -> None:
-        """Raise before allocating when a render cannot fit the device.
-
-        `focus_views` > 0 sizes an all-in-focus render: beside the output
-        it holds the K focus views, gathered and in the estimate kernel's
-        RGBx layout, and the two maps. `extra` bytes are held beside it
-        (a quilt's canvas)."""
-        if self.device.type != "cuda":
-            return
-        g, c, h, w = self.images.shape
-        out = v * c * h * w
-        # output + its [V, H, W, C] copy for the download, + the plain
-        # path's temporaries
-        need = 2 * out + extra
-        if focus_views:
-            need += focus_views * (c + 4) * h * w + 2 * h * w
-        elif method_key == "STD":
-            need += blend_torch.temp_bytes(g, v, c, h, w)
-        free = _free_bytes(self.device)
-        if need > free:
-            raise RuntimeError(
-                f"rendering {v} views of {w}x{h} needs {need / 2**30:.2f} GiB "
-                f"of device memory beyond the stack, {free / 2**30:.2f} GiB "
-                "are free; view-batched rendering is not yet ported "
-                "(ROADMAP slice 4)"
-            )
+        # The downloads' side stream (utils/transfer.py).
+        self._download = transfer.Downloader(self.device)
 
     def _config(self, focus, focus_range, method, effect, aspect):
         """-> (the render's validated config, "TEN" or "STD")."""
@@ -201,46 +198,105 @@ class Interpolator:
         cfg.validate()
         return cfg, "TEN" if cfg.method in ("TEN", "TEN_WM") else "STD"
 
+    def _plan(self, v: int, method_key: str, focus_views: int, extra: int,
+              progress: bool) -> capacity.RenderPlan:
+        g, c, h, w = self.images.shape
+        plan = capacity.plan_render(g, c, h, w, v, method=method_key,
+                                    focus_views=focus_views, extra=extra,
+                                    device=self.device)
+        if plan.batched and progress:
+            print(f"Rendering {v} views in {-(-v // plan.view_batch)} batches "
+                  f"of {plan.view_batch} (the output exceeds device memory)")
+        return plan
+
+    def _view_batched(self, weights: torch.Tensor, vb: int, render) -> np.ndarray:
+        """Render the rows of `weights` [V, G] in batches of `vb`,
+        ``render(rows)`` -> device views [vb, C, H, W] each, and download
+        each batch (a side stream, into its rows of one pinned host array)
+        while the next renders, so at most two batch outputs are on the
+        device (``lfinterpolator_tpu/api.py:98-121``). -> host [V, H, W, C]."""
+        _, c, h, w = self.images.shape
+        v = weights.shape[0]
+        out = transfer.host_empty((v, h, w, c), self.device)
+        pending = None
+        for lo in range(0, v, vb):
+            started = self._download.start(render(weights[lo:lo + vb]),
+                                           out=out[lo:lo + vb])
+            if pending is not None:
+                pending.wait()
+            pending = started
+        pending.wait()
+        return out.numpy()
+
+    def _fixed_step(self, wm: np.ndarray, fo: np.ndarray, method_key: str,
+                    progress: bool, extra: int = 0):
+        """-> the step of a fixed-focus render of the weight rows `wm`
+        [V, G] at the shifts `fo` [G, 2]: () -> (views, None), views device
+        [V, C, H, W], or host [V, H, W, C] when the plan batches."""
+        plan = self._plan(len(wm), method_key, 0, extra, progress)
+        weights, shifts = state.upload_params(wm, fo, self.device)
+
+        def render(rows: torch.Tensor) -> torch.Tensor:
+            return pipeline.render_fixed_focus(self.images, rows, shifts,
+                                               method=method_key)
+
+        if plan.batched:
+            return lambda: (self._view_batched(weights, plan.view_batch, render), None)
+        return lambda: (render(weights), None)
+
+    def _allfocus_step(self, params: state.AllFocusParams, cfg: RenderConfig,
+                       method_key: str, progress: bool, extra: int = 0):
+        """-> the step of an all-in-focus render of `params` (its weight
+        rows, possibly several trajectories' stacked): () -> (views, maps
+        [2, H, W] on the device). The maps are estimated once per step;
+        every view batch blends with them on the per-pixel-focus kernel."""
+        plan = self._plan(len(params.weights), method_key, len(params.focus_ids),
+                          extra, progress)
+        weights, offsets, ids, tables = state.upload_allfocus(params, self.device)
+        if progress:
+            print("Estimating focus map...")
+
+        def step():
+            maps = pipeline.compute_focus_maps(
+                self.images, offsets, ids, tables, radius=params.radius,
+                filter_radius=params.filter_radius,
+                exact_taps=cfg.exact_focus_taps, pyramid=params.pyramid,
+            )
+
+            def render(rows: torch.Tensor) -> torch.Tensor:
+                return pipeline.blend_all_focus(self.images, rows, offsets, maps,
+                                                tables.decode, method=method_key)
+
+            if plan.batched:
+                return self._view_batched(weights, plan.view_batch, render), maps
+            return render(weights), maps
+        return step
+
     def _render_step(self, trajectory: str, cfg: RenderConfig, method_key: str,
                      progress: bool, extra: int = 0):
-        """Upload one render's host arrays; -> the step that renders
-        (views [V, C, H, W] uint8, maps [2, H, W] uint8 or None) on the
-        device. `extra` bytes are held beside the render (_check_memory)."""
+        """The step of one trajectory's render (``_fixed_step`` or
+        ``_allfocus_step``). `extra` bytes are held beside the render."""
         lf = self.lf
         if cfg.uses_focus_map:
             params = state.allfocus_params(
                 trajectory, cols=lf.cols, rows=lf.rows, height=lf.height,
                 width=lf.width, config=cfg,
             )
-            weights, offsets, ids, tables = state.upload_allfocus(
-                params, self.device
-            )
-            self._check_memory(cfg.view_count, method_key,
-                               len(params.focus_ids), extra)
-            if progress:
-                print("Estimating focus map...")
-
-            def step() -> tuple[torch.Tensor, torch.Tensor]:
-                return pipeline.render_all_focus(
-                    self.images, weights, offsets, ids, tables,
-                    method=method_key, radius=params.radius,
-                    filter_radius=params.filter_radius,
-                    exact_taps=cfg.exact_focus_taps, pyramid=params.pyramid,
-                )
-            return step
+            return self._allfocus_step(params, cfg, method_key, progress, extra)
         wm, fo = state.render_params(
             trajectory, cols=lf.cols, rows=lf.rows, height=lf.height,
             width=lf.width, focus=cfg.focus, effect=cfg.effect,
             aspect=cfg.aspect, views=cfg.view_count,
         )
-        weights, shifts = state.upload_params(wm, fo, self.device)
-        self._check_memory(cfg.view_count, method_key, extra=extra)
+        return self._fixed_step(wm, fo, method_key, progress, extra)
 
-        def step() -> tuple[torch.Tensor, None]:
-            return pipeline.render_fixed_focus(
-                self.images, weights, shifts, method=method_key
-            ), None
-        return step
+    def _to_host(self, views, maps) -> tuple[np.ndarray, np.ndarray | None]:
+        """A step's output on the host: the download helper for device
+        views; view batches are on the host already."""
+        if isinstance(views, np.ndarray):
+            return views, None if maps is None else maps.cpu().numpy()
+        out = self._download.start(views, maps).wait()
+        return out if maps is not None else (out, None)
 
     def _run(self, step, benchmark_runs: int, progress: bool):
         """-> (step(), the times of `benchmark_runs` more runs)."""
@@ -274,19 +330,18 @@ class Interpolator:
         Mirrors ``lfinterpolator_tpu.api.Interpolator.interpolate`` on one
         device; `benchmark_runs > 0` additionally times that many
         repetitions of the render step on the device (for an all-in-focus
-        render: estimate, filter and blend). `focus_range > 0` renders all
-        in focus and returns the maps, with the config's `focus_pyramid`
-        by the approximate coarse-to-fine estimate where the geometry takes
-        it (else the exact sweep, as ``api.py:690-693`` routes it). The
-        render must fit the device (the capacity plan, view-batched arm,
-        row blocks and mesh of ``api.py:364-526, 641-672`` come with ROADMAP
-        slice 4).
+        render: estimate, filter and blend; for a view-batched render also
+        the downloads it overlaps). `focus_range > 0` renders all in focus
+        and returns the maps, with the config's `focus_pyramid` by the
+        approximate coarse-to-fine estimate where the geometry takes it
+        (else the exact sweep, as ``api.py:690-693`` routes it). A render
+        whose output does not fit the device runs in view batches; one
+        that cannot fit even so raises before allocating.
         """
         cfg, method_key = self._config(focus, focus_range, method, effect, aspect)
         step = self._render_step(trajectory, cfg, method_key, progress)
         (views, maps), run_times = self._run(step, benchmark_runs, progress)
-        views_np = blend_torch.from_planar(views).cpu().numpy()
-        maps_np = None if maps is None else maps.cpu().numpy()
+        views_np, maps_np = self._to_host(views, maps)
         return RenderResult(
             views=views_np, maps=maps_np, run_times_s=run_times, config=cfg,
             device=str(self.device),
@@ -313,14 +368,14 @@ class Interpolator:
         (``fused=True``): ``quilt.quilt_blend`` blends only the cols*rows
         placed views, each straight into its tile of the canvas, and the
         per-view stack never exists. Everything else -- STD, all in focus
-        (`focus_range > 0`), resized tiles -- renders every view and then
-        assembles the canvas on the device (``quilt.assemble_quilt``), with
-        the same bytes. The JAX package also sends geometries its TPU
-        kernel cannot tile (h % 8 != 0 or w % 128 != 0) and
-        capacity-batched sizes to the two-stage route; the port's kernel
-        takes every geometry, so only method, focus range and tile size
-        decide. `benchmark_runs` times the whole step: render and assembly
-        for the two-stage route.
+        (`focus_range > 0`), resized tiles -- renders every view (in view
+        batches when they do not fit) and then assembles the canvas on the
+        device (``quilt.assemble_quilt``), with the same bytes. The JAX
+        package also sends geometries its TPU kernel cannot tile
+        (h % 8 != 0 or w % 128 != 0) to the two-stage route; the port's
+        kernel takes every geometry, so only method, focus range and tile
+        size decide. `benchmark_runs` times the whole step: render and
+        assembly for the two-stage route.
         """
         cfg, method_key = self._config(focus, focus_range, method, effect, aspect)
         lf = self.lf
@@ -343,7 +398,9 @@ class Interpolator:
                 aspect=cfg.aspect, views=cfg.view_count,
             )
             weights, shifts = state.upload_params(wm, fo, self.device)
-            self._check_memory(0, method_key, extra=canvas)
+            capacity.check_capacity(
+                canvas, f"A {cols}x{rows} quilt of {lf.width}x{lf.height} tiles",
+                device=self.device)
 
             def step() -> torch.Tensor:
                 return quilt.quilt_blend(self.images, weights, shifts, cols, rows)
@@ -355,6 +412,9 @@ class Interpolator:
 
             def step() -> torch.Tensor:
                 views, _ = render()
+                if isinstance(views, np.ndarray):  # view batches, on the host
+                    return _assemble_host_views(views[:n], self.device, cols,
+                                                rows, tile_size)
                 return quilt.assemble_quilt(views, cols, rows, tile_size)
 
         q, run_times = self._run(step, benchmark_runs, progress)
@@ -363,8 +423,74 @@ class Interpolator:
             config=cfg, fused=fused,
         )
 
-    def interpolate_batch(self, *args, **kwargs):
-        raise _not_ported("Batched trajectories (interpolate_batch)", 4)
+    def interpolate_batch(
+        self,
+        trajectories: list[str],
+        *,
+        focus: float = 0.0,
+        focus_range: float = 0.0,
+        method: str | None = None,
+        effect: float | None = None,
+        aspect: float | None = None,
+        center_tolerance: float = 0.0,
+        progress: bool = True,
+    ) -> list[RenderResult]:
+        """Render several trajectories in few kernel passes.
+
+        Port of ``lfinterpolator_tpu.api.Interpolator.interpolate_batch``
+        (``api.py:967-1224``). The per-image shifts depend only on a
+        trajectory's center, so trajectories are grouped by center, and
+        each group stacks its weight matrices into one [n*V, G] matrix that
+        one launch of the kernel blends: every source pixel is read once
+        for the whole group. Each group is planned on its own and falls
+        back to view batches when its stacked output does not fit. With
+        `focus_range > 0` a group also shares its focus views and maps:
+        one estimate per group, and each result carries the group's maps.
+        Results come back in the caller's order.
+
+        `center_tolerance` (grid-cell units, default 0 = off) also merges
+        groups whose centers lie within that distance of an earlier
+        group's first center; members of a merged group render with that
+        first member's center (its offsets, focus views and maps), an
+        approximation for jittered serving traffic.
+        """
+        cfg, method_key = self._config(focus, focus_range, method, effect, aspect)
+        lf = self.lf
+        v = cfg.view_count
+        centers = [
+            geometry.trajectory_center(geometry.parse_trajectory(t, (lf.cols, lf.rows)))
+            for t in trajectories
+        ]
+        results: list[RenderResult | None] = [None] * len(trajectories)
+        for idxs in _group_by_center(centers, center_tolerance):
+            first = trajectories[idxs[0]]
+            if cfg.uses_focus_map:
+                params = state.allfocus_params(
+                    first, cols=lf.cols, rows=lf.rows, height=lf.height,
+                    width=lf.width, config=cfg,
+                )
+            members = [
+                state.render_params(
+                    trajectories[i], cols=lf.cols, rows=lf.rows,
+                    height=lf.height, width=lf.width, focus=cfg.focus,
+                    effect=cfg.effect, aspect=cfg.aspect, views=v,
+                )
+                for i in idxs
+            ]
+            big = np.concatenate([wm for wm, _ in members])  # [len(idxs) * V, G]
+            fo = members[0][1]  # the first member's shifts
+            if cfg.uses_focus_map:
+                step = self._allfocus_step(dataclasses.replace(params, weights=big),
+                                           cfg, method_key, progress)
+            else:
+                step = self._fixed_step(big, fo, method_key, progress)
+            views_np, maps_np = self._to_host(*step())
+            for j, i in enumerate(idxs):
+                results[i] = RenderResult(
+                    views=views_np[j * v:(j + 1) * v], maps=maps_np,
+                    run_times_s=[], config=cfg, device=str(self.device),
+                )
+        return results  # type: ignore[return-value]
 
 
 def interpolate(

@@ -1,7 +1,7 @@
 """Command-line interface of the port: the reference's flag surface.
 
-Same flags as ``lfinterpolator_tpu.cli`` (its ``build_parser`` is reused),
-plus ``--device`` (default ``cuda``). Runs the fixed-focus render, and with
+Same flags as ``lfinterpolator_tpu.cli`` (``build_parser`` is the port's own
+copy of that parser), plus ``--device`` (default ``cuda``). Runs the fixed-focus render, and with
 ``-r > 0`` the all-in-focus one (``--focus-views``, ``--fast-focus``,
 ``--focus-pyramid``), which also writes ``map0.png``/``map1.png``; the
 quilt flags add ``quilt.png`` (``--quilt``, ``--quilt-tile HxW``,
@@ -14,10 +14,9 @@ quilt flags add ``quilt.png`` (``--quilt``, ``--quilt-tile HxW``,
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
-
-from lfinterpolator_tpu import cli as _jax_cli
 
 HELP_TEXT = """Usage:
 Example: lfi-interpolate-torch -i /MyAmazingMachine/thoseImages -t 0.0,0.0,1.0,1.0 -o ./outputs -m STD
@@ -45,9 +44,32 @@ The following arguments are normalized offsets of the images in shift & sum
 """
 
 
-def build_parser():
-    p = _jax_cli.build_parser()
-    p.prog = "lfi-interpolate-torch"
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX package's parser (``lfinterpolator_tpu/cli.py:47-110``): the
+    same flags, destinations and defaults, plus ``--device``."""
+    p = argparse.ArgumentParser(
+        prog="lfi-interpolate-torch", add_help=False, usage=argparse.SUPPRESS
+    )
+    p.add_argument("-h", "--help", action="store_true", dest="help")
+    p.add_argument("-i", dest="input")
+    p.add_argument("-t", dest="trajectory")
+    p.add_argument("-o", dest="output")
+    p.add_argument("-m", dest="method")
+    p.add_argument("-f", dest="focus", type=float, default=0.0)
+    p.add_argument("-r", dest="range", type=float, default=0.0)
+    p.add_argument("-s", dest="effect", type=float, default=3.0)
+    p.add_argument("-a", dest="aspect", type=float, default=1.0)
+    p.add_argument("-b", "--bench-runs", dest="bench_runs", type=int, default=0)
+    p.add_argument("--focus-views", dest="focus_views", type=int, default=32)
+    p.add_argument("--fast-focus", action="store_true")
+    p.add_argument("--focus-pyramid", action="store_true")
+    p.add_argument("--reference-order", action="store_true")
+    p.add_argument("--quilt", action="store_true")
+    p.add_argument("--quilt-only", action="store_true")
+    p.add_argument("--quilt-tile", dest="quilt_tile", metavar="HxW", default=None)
+    p.add_argument("--quilt-reference", action="store_true")
+    p.add_argument("--json", action="store_true", dest="json_out")
+    p.add_argument("--no-progress", action="store_true")
     p.add_argument("--device", default="cuda")
     return p
 
@@ -62,8 +84,8 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     # Deferred so `-h` stays instant (no torch import).
-    from lfinterpolator_tpu.core import geometry
-    from lfinterpolator_tpu.core.config import RenderConfig
+    from .core import geometry
+    from .core.config import RenderConfig
 
     progress = not args.no_progress and not args.json_out
     # Validate the quilt geometry BEFORE the render: a bad --quilt-tile

@@ -1,0 +1,153 @@
+"""Host-side device-memory planning for one-GPU renders.
+
+Port of ``lfinterpolator_tpu/core/capacity.py``, re-derived for the port's
+kernels. Every oversized request is caught by host arithmetic before any
+device allocation, and a render whose output does not fit runs in view
+batches instead of failing in the allocator.
+
+The budget (``device_hbm_bytes``) is what a render may still allocate: the
+free device memory plus the blocks PyTorch's caching allocator holds
+unused. It does NOT include the Interpolator's resident image stack, which
+is allocated at construction; no plan here counts that stack.
+``LFI_HBM_BYTES`` overrides the budget with the same meaning (bytes beyond
+the resident stack), which keeps the batched arm testable on the CPU, whose
+own budget is unbounded.
+
+What a render holds beyond the stack, uint8 unless noted (``plan_render``):
+
+  estimate (all in focus, K focus views): the K views gathered
+            [K, C, H, W], their RGBx words [K, H, W, 4] for the estimate
+            kernel, the maps [2, H, W] and the box filter's int64 integral
+            image;
+  render:   per view the kernel's planar output [C, H, W] and its
+            [H, W, C] copy for the download; STD's plain ops add
+            ``blend_torch.temp_bytes`` (the shifted stack, its f32 copy and
+            the f32 product); an all-focus render keeps its maps.
+
+The port's kernels clamp their indices, so there is no edge-padded stack,
+no shifted or selected stack and no (8, 128) tile alignment to count. Two
+arms remain: everything at once, or view batches with two batch outputs in
+flight (one renders while the other downloads). The JAX package's other
+arms exist only for the TPU's operands and are not ported (ROADMAP.md):
+``drop_images``, the XLA row-block select, ``estimate_row_block``,
+``est_fused_bytes``/``slab_bytes_fn`` and ``estimate_fused``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import torch
+
+from ..ops import blend_torch
+
+#: The budget reported where no device memory limits a render (the CPU).
+UNBOUNDED = 1 << 62
+
+
+def device_hbm_bytes(device) -> int:
+    """Bytes a render on `device` may still allocate (module docstring).
+
+    `LFI_HBM_BYTES` overrides; a CUDA device reports
+    ``torch.cuda.mem_get_info``'s free bytes plus what the caching
+    allocator reserves unused; any other device is unbounded."""
+    env = os.environ.get("LFI_HBM_BYTES")
+    if env:
+        return int(env)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return UNBOUNDED
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+def _headroom(budget: int) -> int:
+    """Slack for the caching allocator's block rounding and fragmentation,
+    cuBLAS's workspace and small constants: 512 MiB at full-card budgets."""
+    return min(512 * 2**20, budget // 16)
+
+
+def _units(*nbytes: int) -> tuple[str, float]:
+    return ("GiB", 2.0**30) if max(nbytes) >= 2**30 else ("MiB", 2.0**20)
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderPlan:
+    """How one render fits device memory."""
+
+    view_batch: int | None  # weight rows per kernel launch; None = all at once
+    budget: int  # effective bytes the plan was sized against
+    bytes_unbatched: int  # peak bytes of the render in one pass
+
+    @property
+    def batched(self) -> bool:
+        return self.view_batch is not None
+
+
+def plan_render(
+    g: int,
+    c: int,
+    h: int,
+    w: int,
+    v: int,
+    *,
+    method: str,
+    focus_views: int = 0,
+    extra: int = 0,
+    device="cuda",
+    budget: int | None = None,
+) -> RenderPlan:
+    """Size a render of `v` views from `g` images and pick its arm.
+
+    `method` is "TEN" or "STD"; `focus_views` > 0 sizes an all-in-focus
+    render (both methods blend on the kernel then); `extra` bytes are held
+    beside the render throughout (a quilt's canvas). Raises ValueError with
+    the arithmetic when even a one-view batch cannot fit."""
+    b = device_hbm_bytes(device) if budget is None else budget
+    b_eff = b - _headroom(b)
+    n = c * h * w
+    estimate = focus_views * (c + 4) * h * w + 48 * h * w if focus_views else 0
+    maps = 2 * h * w if focus_views else 0
+    std = method == "STD" and not focus_views
+
+    def render_bytes(vb: int, in_flight: int) -> int:
+        temp = blend_torch.temp_bytes(g, vb, c, h, w) if std else 0
+        return maps + in_flight * 2 * vb * n + temp + extra
+
+    total = max(estimate + extra, render_bytes(v, 1))
+    if total <= b_eff:
+        return RenderPlan(None, b_eff, total)
+    if estimate + extra <= b_eff:
+        vb = min(v, max(0, b_eff - maps - extra) // (4 * n))
+        while vb >= 1 and render_bytes(vb, 2) > b_eff:
+            vb -= 1
+        if vb >= 1:
+            return RenderPlan(vb, b_eff, total)
+    unit, div = _units(total, b_eff)
+    raise ValueError(
+        f"Render too large for one device: {g} images of {w}x{h} need "
+        f"{estimate / div:.2f} {unit} to estimate the focus maps and "
+        f"{render_bytes(1, 2) / div:.2f} {unit} for a one-view batch, "
+        f"against a {b_eff / div:.2f} {unit} budget beyond the resident "
+        f"stack, so even a one-view batch does not fit. Reduce the "
+        f"resolution, the grid or the focus views."
+    )
+
+
+def check_capacity(resident_bytes: int, what: str, *, device="cuda",
+                   budget: int | None = None) -> None:
+    """Raise before any device allocation when `resident_bytes` cannot fit.
+
+    A lower-bound guard for paths without a batched arm (the stream, the
+    fused quilt): it trips only on arithmetic certainty."""
+    b = device_hbm_bytes(device) if budget is None else budget
+    b_eff = b - _headroom(b)
+    if resident_bytes > b_eff:
+        unit, div = _units(resident_bytes, b_eff)
+        raise ValueError(
+            f"{what} needs at least {resident_bytes / div:.2f} {unit} of "
+            f"device memory against a {b_eff / div:.2f} {unit} budget. Use "
+            f"Interpolator.interpolate (which batches views automatically), "
+            f"or reduce the resolution or the grid."
+        )

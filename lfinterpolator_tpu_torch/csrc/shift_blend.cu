@@ -8,7 +8,12 @@
 //   * shift_pallas._pshift_kernel      (lfinterpolator_tpu/ops/shift_pallas.py:277)
 //   * blend_pallas._blend_tiled_kernel (lfinterpolator_tpu/ops/blend_pallas.py:217)
 //   * blend_pallas._blend_kernel       (lfinterpolator_tpu/ops/blend_pallas.py:165)
-// and, as its quilt instantiation (kQuilt), a fourth:
+// and, on the streaming path, a fourth as its operand load:
+//   * shift_pallas._shift_kernel       (lfinterpolator_tpu/ops/shift_pallas.py:90),
+//     the clamp-shift from the raw tile-padded stack that fed
+//     _blend_tiled_kernel for each streamed frame (streaming.py:262-272);
+//     the clamped index below reads the unpadded stack at any geometry.
+// and, as its quilt instantiation (kQuilt), a fifth:
 //   * blend_pallas._blend_quilt_kernel (lfinterpolator_tpu/ops/blend_pallas.py:311),
 //     fed by _pshift_kernel in quilt.render_fixed_quilt_padded: the same
 //     sums for views 0..n-1 only (n = cols * rows), view v's byte stored at

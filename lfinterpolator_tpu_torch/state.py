@@ -4,7 +4,7 @@
 fp16-quantized weight matrix and the integer focused offsets
 (``lfinterpolator_tpu/api.py:593-611``) -- and ``allfocus_params`` an
 all-in-focus render's (``api.py:593-693``), both with the JAX package's
-NumPy-only geometry. The upload functions take those arrays and the decoded
+NumPy-only geometry (the port's copy, ``core/geometry.py``). The upload functions take those arrays and the decoded
 RGBA stack of a ``LightField`` as numpy and upload them in the layout the
 port's kernels read. As in ``api.py:239-251``, alpha is dropped and the
 stack transposed to planar on the host, so the device never holds the RGBA
@@ -24,9 +24,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from lfinterpolator_tpu.core import geometry
-from lfinterpolator_tpu.core.config import RenderConfig
-
+from .core import geometry
+from .core.config import RenderConfig
 from .ops import estimate_geometry
 from .ops.estimate_geometry import Pyramid
 

@@ -1,0 +1,319 @@
+"""Streaming (video) light-field rendering.
+
+Port of ``lfinterpolator_tpu/streaming.py``: render a sequence of
+light-field frames of one geometry, with the host->device upload of frame
+t+1 and the download of frame t-1 overlapped with the render of frame t,
+and PNG writes overlapped with all three.
+
+The JAX package expresses the overlap as a prefetch queue over its
+asynchronous dispatch. The CUDA form of it:
+
+    decode thread:    frames -> pinned host buffers         (prefetch + 1)
+    upload stream:    pinned buffer -> device frame t+1     (event)
+    current stream:   planar copy + render of frame t       (waits on it)
+    download stream:  views of frame t-1 -> pinned memory   (event)
+    writer pool:      PNG encode (``render_to_dir``)
+
+At most `prefetch` renders are in flight before the oldest one is
+downloaded and yielded. A fixed-focus TEN frame is one ``shift_blend``
+launch on the raw stack: its operand load is the clamp-shift that the JAX
+package's ``shift_pallas._shift_kernel`` (K2) computed into a tiled
+intermediate, so no shifted or tile-padded stack exists and every geometry
+streams. A fixed-focus STD frame is the plain ops; an all-focus frame is
+``pipeline.render_all_focus`` (estimate, filter, per-pixel blend), or with
+``focus_map_refresh`` N > 1 the maps of the first of every N frames and
+a blend per frame.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import dataclasses
+import os
+import queue
+import threading
+import time
+from collections.abc import Iterable, Iterator
+
+import numpy as np
+import torch
+
+from . import state
+from .core import capacity
+from .core.config import RenderConfig
+from .io import writer
+from .models import pipeline
+from .ops import blend_torch
+from .utils import transfer
+
+
+@dataclasses.dataclass
+class StreamStats:
+    frames: int  # total accounted for (rendered + skipped)
+    total_s: float
+    skipped: int = 0  # complete frames skipped by resume
+
+    @property
+    def rendered(self) -> int:
+        return self.frames - self.skipped
+
+    @property
+    def fps(self) -> float:
+        """Throughput of the frames actually rendered."""
+        return self.rendered / self.total_s if self.total_s > 0 else 0.0
+
+
+class StreamingRenderer:
+    """Fixed-geometry renderer for a sequence of light-field frames.
+
+    Frames are [G, H, W, C>=3] uint8 host arrays, G = cols * rows, all of
+    one shape. ``device="cuda"`` (the default) without a CUDA device
+    raises; ``device="cpu"`` runs the plain PyTorch path.
+    """
+
+    def __init__(
+        self,
+        cols: int,
+        rows: int,
+        width: int,
+        height: int,
+        trajectory: str,
+        *,
+        config: RenderConfig | None = None,
+        prefetch: int = 2,
+        device: str | torch.device = "cuda",
+    ):
+        self.device = torch.device(device)
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"device must be cpu or cuda, not {self.device}")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: the stream needs a CUDA device "
+                "(pass device='cpu' for the plain PyTorch path)"
+            )
+        self.cfg = config or RenderConfig()
+        self.cfg.validate()
+        self.cols, self.rows = cols, rows
+        self.width, self.height = width, height
+        self.prefetch = max(1, prefetch)
+        self.method = "TEN" if self.cfg.method in ("TEN", "TEN_WM") else "STD"
+        cfg = self.cfg
+        if cfg.uses_focus_map:
+            self._params = state.allfocus_params(
+                trajectory, cols=cols, rows=rows, height=height, width=width,
+                config=cfg,
+            )
+            (self.weights, self._offsets, self._ids,
+             self._tables) = state.upload_allfocus(self._params, self.device)
+            self._frame_idx = 0
+            self._maps = None
+        else:
+            wm, fo = state.render_params(
+                trajectory, cols=cols, rows=rows, height=height, width=width,
+                focus=cfg.focus, effect=cfg.effect, aspect=cfg.aspect,
+                views=cfg.view_count,
+            )
+            self.weights, self.shifts = state.upload_params(wm, fo, self.device)
+        # Host-side guard: the stream has no view-batched arm. Each frame in
+        # flight holds its upload (RGBA at most) and planar stack, its views
+        # and their download copy; plus the estimate's operands all in
+        # focus, or STD's plain temporaries.
+        g, n = cols * rows, height * width
+        frame = g * 7 * n + 2 * cfg.view_count * 3 * n
+        resident = (self.prefetch + 1) * frame
+        if cfg.uses_focus_map:
+            resident += len(self._params.focus_ids) * 7 * n + 48 * n
+        elif self.method == "STD":
+            resident += blend_torch.temp_bytes(g, cfg.view_count, 3, height, width)
+        capacity.check_capacity(
+            resident,
+            f"Streaming {cfg.view_count} views per {width}x{height} frame "
+            f"from {g} images (prefetch={self.prefetch})",
+            device=self.device,
+        )
+        self._download = transfer.Downloader(self.device)
+        # pinned host frames and the upload stream, kept across streams
+        self._host_frames: dict[int, torch.Tensor] = {}
+        self._upload = None
+
+    def _render(self, images: torch.Tensor):
+        """One planar frame [G, 3, H, W] on the device -> views
+        [V, 3, H, W], or (views, maps [2, H, W]) all in focus."""
+        if not self.cfg.uses_focus_map:
+            return pipeline.render_fixed_focus(images, self.weights, self.shifts,
+                                               method=self.method)
+        cfg, p = self.cfg, self._params
+        kwargs = dict(radius=p.radius, filter_radius=p.filter_radius,
+                      exact_taps=cfg.exact_focus_taps, pyramid=p.pyramid)
+        if cfg.focus_map_refresh == 1:
+            return pipeline.render_all_focus(
+                images, self.weights, self._offsets, self._ids, self._tables,
+                method=self.method, **kwargs)
+        # Temporal map reuse (streaming.py:224-252): re-estimate every N
+        # frames, blend the frames in between with the latest maps. Frames
+        # that estimate are equal to the render_all_focus of the frame.
+        if self._frame_idx % cfg.focus_map_refresh == 0:
+            self._maps = pipeline.compute_focus_maps(
+                images, self._offsets, self._ids, self._tables, **kwargs)
+        self._frame_idx += 1
+        views = pipeline.blend_all_focus(images, self.weights, self._offsets,
+                                         self._maps, self._tables.decode,
+                                         method=self.method)
+        return views, self._maps
+
+    def _frames_cuda(self, frames: Iterable[np.ndarray]) -> Iterator[torch.Tensor]:
+        """Planar device frames: a decode thread copies each host frame into
+        one of prefetch + 1 pinned buffers, the upload stream copies it to
+        the device, and the current stream waits for that copy's event
+        before the planar copy. A buffer is refilled only after the event of
+        its last upload."""
+        dev = self.device
+        if self._upload is None:
+            self._upload = torch.cuda.Stream(dev)
+        upload, buffers = self._upload, self._host_frames
+        free: queue.Queue = queue.Queue()
+        for slot in range(self.prefetch + 1):
+            free.put((slot, None))
+        ready: queue.Queue = queue.Queue()
+        done = object()
+        stop = threading.Event()
+
+        def feeder():
+            try:
+                for f in frames:
+                    slot, event = free.get()
+                    if stop.is_set():
+                        return
+                    if event is not None:
+                        event.synchronize()
+                    f = torch.from_numpy(np.asarray(f))
+                    buf = buffers.get(slot)
+                    if buf is None or buf.shape != f.shape:
+                        buf = torch.empty(f.shape, dtype=torch.uint8, pin_memory=True)
+                        buffers[slot] = buf
+                    buf.copy_(f)  # on torch's intra-op threads, not one core
+                    ready.put(slot)
+                ready.put(done)
+            except BaseException as e:  # forwarded to the consumer
+                ready.put(e)
+
+        thread = threading.Thread(target=feeder, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = ready.get()
+                if isinstance(item, BaseException):
+                    raise item
+                if item is done:
+                    return
+                event = torch.cuda.Event()
+                with torch.cuda.stream(upload):
+                    raw = buffers[item].to(dev, non_blocking=True)
+                    event.record(upload)
+                free.put((item, event))
+                torch.cuda.current_stream(dev).wait_event(event)
+                raw.record_stream(torch.cuda.current_stream(dev))
+                yield blend_torch.to_planar(raw)
+        finally:
+            stop.set()
+            free.put((0, None))  # wake a feeder waiting for a buffer
+            thread.join()
+            upload.synchronize()  # the buffers serve the next stream
+
+    def _frames_cpu(self, frames: Iterable[np.ndarray]) -> Iterator[torch.Tensor]:
+        """Planar CPU frames, decoded `prefetch` frames ahead by a thread."""
+        ready: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        done = object()
+
+        def feeder():
+            try:
+                for f in frames:
+                    ready.put(np.asarray(f))
+                ready.put(done)
+            except BaseException as e:  # forwarded to the consumer
+                ready.put(e)
+
+        threading.Thread(target=feeder, daemon=True).start()
+        while True:
+            item = ready.get()
+            if isinstance(item, BaseException):
+                raise item
+            if item is done:
+                return
+            yield blend_torch.to_planar(torch.from_numpy(item))
+
+    def render_stream(self, frames: Iterable[np.ndarray]) -> Iterator:
+        """Yield [V, H, W, 3] uint8 view stacks, one per input frame -- or
+        ([V, H, W, 3] views, [2, H, W] maps) tuples when the config enables
+        the per-pixel focus map (focus_range > 0). Errors raised by
+        `frames` propagate; an empty stream yields nothing."""
+        source = (self._frames_cuda if self.device.type == "cuda"
+                  else self._frames_cpu)(frames)
+        pending: list[transfer.Pending] = []
+        for images in source:
+            out = self._render(images)
+            del images
+            views, maps = out if self.cfg.uses_focus_map else (out, None)
+            pending.append(self._download.start(views, maps))
+            del out, views, maps
+            if len(pending) > self.prefetch:
+                yield pending.pop(0).wait()
+        for p in pending:
+            yield p.wait()
+
+    def render_to_dir(
+        self,
+        frames: Iterable,
+        output_dir: str,
+        *,
+        writers: int = 4,
+        resume: bool = False,
+    ) -> StreamStats:
+        """Render a stream and write each frame's views under
+        output_dir/frame_%05d/ with a background writer pool.
+
+        `frames` yields uint8 arrays or zero-argument callables returning
+        them. With `resume=True`, frames whose directory already holds every
+        file ``write_views`` writes (checked by exact name, so stray PNGs do
+        not count) are skipped, and their callables are never called. PNG
+        writes are atomic (a ``.tmp`` file renamed into place)."""
+        t0 = time.perf_counter()
+        n = skipped = 0
+        v_count = self.cfg.view_count
+        digits = max(2, len(str(v_count - 1)))
+        expected = [f"{i:0{digits}d}.png" for i in range(v_count)]
+        if self.cfg.uses_focus_map:
+            expected += ["map0.png", "map1.png"]
+
+        def complete(i: int) -> bool:
+            d = os.path.join(output_dir, f"frame_{i:05d}")
+            return os.path.isdir(d) and all(
+                os.path.exists(os.path.join(d, name)) for name in expected)
+
+        # render_stream keeps the order, and the decode thread appends an
+        # index before its frame can produce an output.
+        pending_idx: list[int] = []
+
+        def to_render():
+            nonlocal skipped
+            for i, f in enumerate(frames):
+                if resume and complete(i):
+                    skipped += 1
+                    continue
+                pending_idx.append(i)
+                yield f() if callable(f) else f
+
+        with concurrent.futures.ThreadPoolExecutor(max_workers=writers) as pool:
+            futures = []
+            for out in self.render_stream(to_render()):
+                views, maps = out if self.cfg.uses_focus_map else (out, None)
+                futures.append(pool.submit(
+                    writer.write_views,
+                    os.path.join(output_dir, f"frame_{pending_idx.pop(0):05d}"),
+                    views, maps, progress=False,
+                ))
+                n += 1
+            for f in futures:
+                f.result()
+        return StreamStats(frames=n + skipped, total_s=time.perf_counter() - t0,
+                           skipped=skipped)

@@ -21,11 +21,13 @@ from lfinterpolator_tpu import cli as jax_cli
 from lfinterpolator_tpu.core import geometry
 from lfinterpolator_tpu.core.config import RenderConfig
 from lfinterpolator_tpu.io import codec
-from lfinterpolator_tpu.io.loader import LightField
+from lfinterpolator_tpu.io.loader import LightField as JaxLightField
 from lfinterpolator_tpu.ops import reference
-from lfinterpolator_tpu_torch import api, cli
+from lfinterpolator_tpu_torch import cli
 from lfinterpolator_tpu_torch import io as port_io
 from lfinterpolator_tpu_torch.api import Interpolator
+from lfinterpolator_tpu_torch.core import capacity
+from lfinterpolator_tpu_torch.io import LightField
 from lfinterpolator_tpu_torch.state import allfocus_params
 
 torch.set_num_threads(1)
@@ -64,7 +66,8 @@ def test_interpolator_matches_jax_and_oracle(small_lf, method, exact):
     got = Interpolator(lf, config=cfg, device="cpu", progress=False).interpolate(
         "0,0,1,1", focus=0.1, focus_range=0.3, method=method, progress=False
     )
-    want = jax_api.Interpolator(lf, config=cfg, progress=False).interpolate(
+    want = jax_api.Interpolator(JaxLightField(images, cols, rows), config=cfg,
+                                progress=False).interpolate(
         "0,0,1,1", focus=0.1, focus_range=0.3, method=method, progress=False
     )
     assert got.views.shape == want.views.shape == (64, 48, 64, 3)
@@ -122,7 +125,7 @@ def test_allfocus_params_match_the_jax_construction(
         raise Caught
 
     monkeypatch.setattr(jax_api.pipeline, "render_all_focus", spy)
-    lf = LightField(np.zeros((cols * rows, h, w, 4), np.uint8), cols, rows)
+    lf = JaxLightField(np.zeros((cols * rows, h, w, 4), np.uint8), cols, rows)
     with pytest.raises(Caught):
         jax_api.Interpolator(lf, config=cfg, progress=False).interpolate(
             "0,0,1,1", focus=focus, focus_range=frange, progress=False
@@ -189,16 +192,24 @@ def test_cli_matches_jax_cli(scene_dir, small_lf, tmp_path, capsys, fast):
 
 
 def test_check_memory_counts_the_allfocus_peak(small_lf, monkeypatch):
+    """The all-focus render's peak beyond the stack, now sized by the
+    capacity plan (core/capacity.py): the K focus views gathered and as
+    RGBx words, the maps and the filter's integral image while estimating;
+    then the maps beside every view's output and its download copy. Both
+    methods blend on the kernel, so STD adds no plain temporaries."""
     images, (cols, rows) = small_lf
     interp = Interpolator(LightField(images, cols, rows), device="cpu",
                           progress=False)
-    interp.device = torch.device("cuda")  # the check runs for CUDA only
+    monkeypatch.setattr(capacity, "_headroom", lambda budget: 0)
     v, k, c, h, w = 64, 8, 3, 48, 64
-    need = 2 * v * c * h * w + k * (c + 4) * h * w + 2 * h * w
-    monkeypatch.setattr(api, "_free_bytes", lambda device: need)
-    interp._check_memory(v, "TEN", k)
-    interp._check_memory(v, "STD", k)
-    monkeypatch.setattr(api, "_free_bytes", lambda device: need - 1)
+    need = max(k * (c + 4) * h * w + 48 * h * w, 2 * h * w + 2 * v * c * h * w)
+    monkeypatch.setenv("LFI_HBM_BYTES", str(need))
     for method in ("TEN", "STD"):
-        with pytest.raises(RuntimeError, match="needs .* GiB of device memory"):
-            interp._check_memory(v, method, k)
+        assert not interp._plan(v, method, k, 0, False).batched
+    monkeypatch.setenv("LFI_HBM_BYTES", str(need - 1))
+    for method in ("TEN", "STD"):
+        assert interp._plan(v, method, k, 0, False).batched
+    monkeypatch.setenv("LFI_HBM_BYTES", str(k * (c + 4) * h * w + 48 * h * w - 1))
+    for method in ("TEN", "STD"):
+        with pytest.raises(ValueError, match="too large for one device"):
+            interp._plan(v, method, k, 0, False)

@@ -2,7 +2,8 @@
 (shift_blend and its quilt instantiation, focus_estimate with both tap
 rules and the presence-predicated refine pass, allfocus_blend, the quilt
 tile copy) against their plain PyTorch versions and the NumPy oracle,
-through the wrappers and through the Interpolator. Tolerance: bit-equal
+through the wrappers, the Interpolator (also batched trajectories and
+forced view batches) and the StreamingRenderer. Tolerance: bit-equal
 throughout (maps are argmin bytes; the blends sum exact products in the
 oracle's order; the tile copy moves bytes).
 
@@ -17,8 +18,8 @@ import pytest
 import torch
 
 from lfinterpolator_tpu.core import geometry
-from lfinterpolator_tpu.io.loader import LightField
 from lfinterpolator_tpu.ops import reference
+from lfinterpolator_tpu_torch.io import LightField
 from lfinterpolator_tpu_torch.ops import (
     allfocus_blend, focus_estimate, focus_torch, quilt, quilt_torch, shift_blend)
 from lfinterpolator_tpu_torch.ops.estimate_geometry import Pyramid
@@ -294,7 +295,7 @@ def test_new_kernels_launch_error_raises(kernel, cuda_device, monkeypatch):
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
 @pytest.mark.parametrize("method", ["TEN", "STD"])
 def test_interpolator_allfocus_on_cuda_equals_cpu(method, exact, cuda_device):
-    from lfinterpolator_tpu.core.config import RenderConfig
+    from lfinterpolator_tpu_torch.core.config import RenderConfig
     from lfinterpolator_tpu_torch.api import Interpolator
 
     images, _, _ = _scene(4, 4, 48, 64, 1, 0.0)
@@ -464,7 +465,7 @@ def test_quilt_copy_matches_plain_version_and_oracle(shape, cuda_device):
            dict(method="TEN", tile_size=(20, 40))],
     ids=["fused", "std", "allfocus", "resized"])
 def test_render_quilt_on_cuda_equals_cpu(kw, cuda_device):
-    from lfinterpolator_tpu.core.config import RenderConfig
+    from lfinterpolator_tpu_torch.core.config import RenderConfig
     from lfinterpolator_tpu_torch.api import Interpolator
 
     images, _, _ = _scene(4, 4, 48, 64, 1, 0.0)
@@ -488,7 +489,7 @@ def test_render_quilt_on_cuda_equals_cpu(kw, cuda_device):
 
 @pytest.mark.cuda
 def test_interpolator_pyramid_on_cuda_equals_cpu(cuda_device):
-    from lfinterpolator_tpu.core.config import RenderConfig
+    from lfinterpolator_tpu_torch.core.config import RenderConfig
     from lfinterpolator_tpu_torch.api import Interpolator
 
     images, _, _ = _scene(4, 4, 40, 512, 1, 0.0)
@@ -506,3 +507,98 @@ def test_interpolator_pyramid_on_cuda_equals_cpu(cuda_device):
                                       method="TEN", progress=False)
     np.testing.assert_array_equal(got.maps, want.maps)
     np.testing.assert_array_equal(got.views, want.views)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("focus_range", [0.0, 0.3], ids=["fixed", "allfocus"])
+def test_stream_on_cuda_equals_plain_and_oracle(focus_range, cuda_device):
+    """The CUDA stream (pinned uploads, upload/download streams) yields each
+    frame equal to the plain pipeline on the CPU; fixed TEN frames equal
+    the oracle and launch shift_blend once a frame."""
+    from lfinterpolator_tpu_torch.core.config import RenderConfig
+    from lfinterpolator_tpu_torch.streaming import StreamingRenderer
+
+    cfg = RenderConfig(method="TEN", focus=0.3, focus_range=focus_range, view_count=9,
+                       focus_map_views=8, focus_steps=8, focus_map_refresh=2)
+    frames = [_scene(4, 4, 37, 70, 1, 0.0, seed=s)[0] for s in range(5)]
+    before = shift_blend.launches
+    got = list(StreamingRenderer(4, 4, 70, 37, "0,0,1,1", config=cfg, prefetch=2,
+                                 device=cuda_device).render_stream(iter(frames)))
+    want = list(StreamingRenderer(4, 4, 70, 37, "0,0,1,1", config=cfg,
+                                  device="cpu").render_stream(iter(frames)))
+    assert len(got) == len(want) == 5
+    if focus_range:
+        for (gv, gm), (wv, wm_) in zip(got, want):
+            np.testing.assert_array_equal(gm, wm_)
+            np.testing.assert_array_equal(gv, wv)
+        return
+    assert shift_blend.launches == before + 5
+    _, wm, fo = _scene(4, 4, 37, 70, 9, 0.3)
+    for frame, g, w in zip(frames, got, want):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, reference.blend_fixed(frame, wm, fo))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("focus_range", [0.0, 0.3], ids=["fixed", "allfocus"])
+def test_interpolate_batch_on_cuda_equals_solo_and_cpu(focus_range, cuda_device):
+    from lfinterpolator_tpu_torch.api import Interpolator
+    from lfinterpolator_tpu_torch.core.config import RenderConfig
+
+    images, _, _ = _scene(4, 4, 48, 64, 1, 0.0)
+    lf = LightField(images, 4, 4)
+    cfg = RenderConfig(method="TEN", view_count=8, focus_map_views=8, focus_steps=8)
+    trajs = ["0,0,1,1", "0.2,0.2,0.8,0.8", "0,0,0.5,0.5"]
+    kw = dict(focus=0.2, focus_range=focus_range, progress=False)
+    gpu = Interpolator(lf, config=cfg, device=cuda_device, progress=False)
+    before = (shift_blend.launches, allfocus_blend.launches,
+              focus_estimate.launches["exact"])
+    got = gpu.interpolate_batch(trajs, **kw)
+    # two center groups: one blend launch each, one estimate each
+    after = (shift_blend.launches, allfocus_blend.launches,
+             focus_estimate.launches["exact"])
+    assert [a - b for a, b in zip(after, before)] == (
+        [0, 2, 2] if focus_range else [2, 0, 0])
+    want = Interpolator(lf, config=cfg, device="cpu", progress=False
+                        ).interpolate_batch(trajs, **kw)
+    for t, g, w in zip(trajs, got, want):
+        np.testing.assert_array_equal(g.views, w.views)
+        np.testing.assert_array_equal(g.views, gpu.interpolate(t, **kw).views)
+        if focus_range:
+            np.testing.assert_array_equal(g.maps, w.maps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method, focus_range", [("TEN", 0.0), ("STD", 0.0), ("TEN", 0.3)],
+                         ids=["fixed_ten", "fixed_std", "allfocus"])
+def test_forced_view_batches_on_cuda_equal_unbatched(method, focus_range, cuda_device,
+                                                     monkeypatch):
+    """LFI_HBM_BYTES forces view batches (pinned downloads on a side stream
+    while the next batch renders): equal to the one-pass render, and the
+    fixed TEN views to the oracle."""
+    from lfinterpolator_tpu_torch.api import Interpolator
+    from lfinterpolator_tpu_torch.core import capacity
+    from lfinterpolator_tpu_torch.core.config import RenderConfig
+
+    images, wm, fo = _scene(4, 4, 48, 64, 64, 0.2)
+    lf = LightField(images, 4, 4)
+    cfg = RenderConfig(focus_map_views=8, focus_steps=8)
+    interp = Interpolator(lf, config=cfg, device=cuda_device, progress=False)
+    kw = dict(focus=0.2, focus_range=focus_range, method=method, progress=False)
+    ref = interp.interpolate("0,0,1,1", **kw)
+    k = 8 if focus_range else 0
+    budget = next(b for b in range(1 << 24, 0, -1001)
+                  if (capacity.plan_render(16, 3, 48, 64, 64, method=method,
+                                           focus_views=k, budget=b).view_batch or 64) <= 20)
+    monkeypatch.setenv("LFI_HBM_BYTES", str(budget))
+    assert interp._plan(64, method, k, 0, False).view_batch <= 20
+    before = allfocus_blend.launches if focus_range else shift_blend.launches
+    out = interp.interpolate("0,0,1,1", **kw)
+    launched = (allfocus_blend.launches if focus_range else shift_blend.launches) - before
+    assert launched == (0 if method == "STD" else -(-64 // interp._plan(
+        64, method, k, 0, False).view_batch))
+    np.testing.assert_array_equal(out.views, ref.views)
+    if focus_range:
+        np.testing.assert_array_equal(out.maps, ref.maps)
+    elif method == "TEN":
+        np.testing.assert_array_equal(out.views, reference.blend_fixed(images, wm, fo))

@@ -1,6 +1,7 @@
 """Import hygiene and the build's failure paths of lfinterpolator_tpu_torch.
 
-The port never imports jax, importing it builds nothing, `device="cuda"`
+The port never imports jax nor any module of the JAX package
+(``lfinterpolator_tpu``), importing it builds nothing, `device="cuda"`
 without a card raises, and a failing nvcc raises with its own stderr.
 """
 
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from lfinterpolator_tpu.io.loader import LightField
+from lfinterpolator_tpu_torch.io import LightField
 from lfinterpolator_tpu_torch.ops import _build
 
 torch.set_num_threads(1)
@@ -30,22 +31,26 @@ def _fake_nvcc(directory, body: str) -> str:
 
 
 def test_package_imports_no_jax_and_builds_nothing(tmp_path):
+    """A walk through every entry point on the CPU: no jax, no module of
+    the JAX package, no nvcc."""
     marker = tmp_path / "nvcc_ran"
     bindir = tmp_path / "bin"
     bindir.mkdir()
     _fake_nvcc(str(bindir), f"touch {marker}; exit 1")
     script = textwrap.dedent("""
+        import os
         import sys
         import numpy as np
         import lfinterpolator_tpu_torch as pkg
-        from lfinterpolator_tpu_torch import cli, io, state
+        from lfinterpolator_tpu_torch import cli, io, state, streaming
+        from lfinterpolator_tpu_torch.core import capacity, config, geometry
         from lfinterpolator_tpu_torch.api import Interpolator
         from lfinterpolator_tpu_torch.io import LightField
         from lfinterpolator_tpu_torch.models import pipeline
         from lfinterpolator_tpu_torch.ops import (
             _build, allfocus_blend, blend_torch, estimate_geometry, focus_estimate,
             focus_torch, quilt, quilt_torch, shift_blend)
-        from lfinterpolator_tpu_torch.utils import profiling
+        from lfinterpolator_tpu_torch.utils import profiling, progress, transfer
         assert pkg.Interpolator is Interpolator
         rng = np.random.default_rng(0)
         lf = LightField(rng.integers(0, 256, (4, 8, 12, 4), dtype=np.uint8), 2, 2)
@@ -67,7 +72,20 @@ def test_package_imports_no_jax_and_builds_nothing(tmp_path):
         res = interp.interpolate("0,0,1,1", focus=0.1, focus_range=0.3,
                                  method="TEN", progress=False)
         assert res.maps.shape == (2, 16, 512)
-        bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))]
+        # slice 4: batched trajectories, a forced view-batched render, a stream
+        batch = interp.interpolate_batch(["0,0,1,1", "0.1,0.1,0.9,0.9"], focus=0.1,
+                                         focus_range=0.3, progress=False)
+        assert [r.views.shape for r in batch] == [(64, 16, 512, 3)] * 2
+        os.environ["LFI_HBM_BYTES"] = str(3_000_000)
+        assert interp._plan(64, "TEN", 0, 0, False).batched
+        res = interp.interpolate("0,0,1,1", focus=0.2, method="TEN", progress=False)
+        assert res.views.shape == (64, 16, 512, 3)
+        del os.environ["LFI_HBM_BYTES"]
+        sr = pkg.StreamingRenderer(2, 2, 12, 8, "0,0,1,1", device="cpu")
+        frames = [rng.integers(0, 256, (4, 8, 12, 4), dtype=np.uint8)] * 2
+        assert [v.shape for v in sr.render_stream(frames)] == [(64, 8, 12, 3)] * 2
+        bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+               or m == "lfinterpolator_tpu" or m.startswith("lfinterpolator_tpu.")]
         assert not bad, bad
         print("OK")
     """)

@@ -22,7 +22,6 @@ import torch
 from lfinterpolator_tpu.core import geometry
 from lfinterpolator_tpu.core.config import RenderConfig
 from lfinterpolator_tpu.io import codec
-from lfinterpolator_tpu.io.loader import LightField
 from lfinterpolator_tpu.models import pipeline as jax_pipeline
 from lfinterpolator_tpu.ops import estimate_pallas as ep
 from lfinterpolator_tpu.ops import focus as focus_ops
@@ -30,6 +29,7 @@ from lfinterpolator_tpu.ops import reference
 from lfinterpolator_tpu_torch import cli
 from lfinterpolator_tpu_torch import io as port_io
 from lfinterpolator_tpu_torch.api import Interpolator
+from lfinterpolator_tpu_torch.io import LightField
 from lfinterpolator_tpu_torch.models import pipeline
 from lfinterpolator_tpu_torch.ops import estimate_geometry as eg
 from lfinterpolator_tpu_torch.ops import focus_estimate, focus_torch

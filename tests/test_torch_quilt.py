@@ -22,12 +22,13 @@ from lfinterpolator_tpu import api as jax_api
 from lfinterpolator_tpu import cli as jax_cli
 from lfinterpolator_tpu.core.config import RenderConfig
 from lfinterpolator_tpu.io import codec
-from lfinterpolator_tpu.io.loader import LightField
+from lfinterpolator_tpu.io.loader import LightField as JaxLightField
 from lfinterpolator_tpu.ops import blend_pallas, reference
 from lfinterpolator_tpu.ops import quilt as jax_quilt
 from lfinterpolator_tpu_torch import api, cli
 from lfinterpolator_tpu_torch import io as port_io
 from lfinterpolator_tpu_torch.api import Interpolator, QuiltResult
+from lfinterpolator_tpu_torch.io import LightField
 from lfinterpolator_tpu_torch.ops import quilt, quilt_torch
 from lfinterpolator_tpu_torch.state import render_params, to_device_state
 
@@ -154,7 +155,8 @@ def test_render_quilt_matches_jax(small_lf, kw):
     lf = LightField(images, cols, rows)
     got = Interpolator(lf, config=CONFIG, device="cpu", progress=False).render_quilt(
         "0,0,1,1", focus=0.1, progress=False, **kw)
-    want = jax_api.Interpolator(lf, config=CONFIG, progress=False).render_quilt(
+    want = jax_api.Interpolator(JaxLightField(images, cols, rows), config=CONFIG,
+                                progress=False).render_quilt(
         "0,0,1,1", focus=0.1, progress=False, **kw)
     assert isinstance(got, QuiltResult)
     assert got.fused is (kw.get("method") == "TEN" and "focus_range" not in kw

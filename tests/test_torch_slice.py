@@ -19,11 +19,12 @@ from lfinterpolator_tpu.api import Interpolator as JaxInterpolator
 from lfinterpolator_tpu.core import geometry
 from lfinterpolator_tpu.core.config import RenderConfig
 from lfinterpolator_tpu.io import codec
-from lfinterpolator_tpu.io.loader import LightField
+from lfinterpolator_tpu.io.loader import LightField as JaxLightField
 from lfinterpolator_tpu.ops import reference
 from lfinterpolator_tpu_torch import cli
 from lfinterpolator_tpu_torch import io as port_io
 from lfinterpolator_tpu_torch.api import Interpolator, RenderResult, interpolate
+from lfinterpolator_tpu_torch.io import LightField
 from lfinterpolator_tpu_torch.state import render_params, to_device_state
 
 torch.set_num_threads(1)
@@ -68,7 +69,7 @@ def test_interpolator_matches_jax_and_oracle(small_lf, method, focus, monkeypatc
     got = Interpolator(lf, device="cpu", progress=False).interpolate(
         "0,0,1,1", focus=focus, method=method, progress=False
     )
-    want = JaxInterpolator(lf, progress=False).interpolate(
+    want = JaxInterpolator(JaxLightField(images, cols, rows), progress=False).interpolate(
         "0,0,1,1", focus=focus, method=method, progress=False
     )
     assert got.views.shape == want.views.shape == (64, 48, 64, 3)
@@ -164,8 +165,9 @@ def test_not_ported_parts_raise(small_lf):
     with pytest.raises(ValueError, match="needs at least 32 grid images"):
         interp.interpolate("0,0,1,1", focus_range=0.3, progress=False)
     assert interp.render_quilt("0,0,1,1", progress=False).quilt.shape == (432, 320, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 4"):
-        interp.interpolate_batch(["0,0,1,1"])
+    # ported now too: batched trajectories (slice 4)
+    (res,) = interp.interpolate_batch(["0,0,1,1"], progress=False)
+    assert res.views.shape == (64, 48, 64, 3)
     with pytest.raises(ValueError, match="does not exist"):
         interp.interpolate("0,0,1,1", method="WHAT", progress=False)
 
