@@ -16,7 +16,7 @@
 // and, as its quilt instantiation (kQuilt), a fifth:
 //   * blend_pallas._blend_quilt_kernel (lfinterpolator_tpu/ops/blend_pallas.py:311),
 //     fed by _pshift_kernel in quilt.render_fixed_quilt_padded: the same
-//     sums for views 0..n-1 only (n = cols * rows), view v's byte stored at
+//     sums for views 0..n-1 only (n = cols * rows), view v's bytes stored at
 //     its tile (v / cols, v % cols) of the [C, rows * H, cols * W] canvas,
 //     so the 64-view stack never exists. The TPU needed h % 8 == 0 and
 //     w % 128 == 0 for the tiles to butt inside its blocks
@@ -27,73 +27,195 @@
 // so the shift is this kernel's operand load and nothing is staged in
 // device memory between the two stages.
 //
-// Numerics: f32 accumulation in ascending g as __fadd_rn(acc, __fmul_rn(w, p)),
-// so no FMA contraction; __float2int_rn (half to even), then clamp, then cast.
-// With fp16-valued weights every product is exact, so the result is
-// bit-equal to the NumPy oracle (ops/reference.py blend_fixed).
+// Bound: bytes. At the headline frame (8x8 grid, 1080x1920, 64 views) the
+// kernel must read 398 MB and write 398 MB (0.238 ms at the card's memory
+// rate) and do 51 GFLOP (0.05 ms on the tensor cores). What the design does
+// about it: a block owns 128 pixels of one image row, for all channels in
+// turn. The shift is constant per image, so a channel's operand is, per g,
+// one contiguous span of row clamp(y + dy_g): each thread loads 16 pixels
+// of it as five aligned 4-byte words, removes the byte misalignment with a
+// funnel shift, converts to fp16 and stages them in shared memory once for
+// every view (spans that touch an edge of the row take clamped byte loads).
+// A thread issues the loads of four spans before it converts the first, so
+// that their latencies overlap.
+// lfi::blend_tile then contracts the staged tile with the weights on the
+// tensor cores, 64 views at a time, and stores 16 bytes per thread. The
+// weights are staged once per block when there are at most 64 views, once
+// per channel and chunk otherwise.
 //
-// Bound: at the headline frame (8x8 grid, 1080x1920, 64 views) the
-// contraction is 25.5 G multiply-adds (51 GFLOP) against 796 MB of traffic,
-// so this scalar-f32 kernel is bound by f32 issue, not by memory. Its
-// design does no more than keep the bytes low: each block owns one
-// 128-pixel row segment of one channel, loads each source byte once per
-// chunk of 32 views (coalesced along x, since the shift is constant per
-// image), keeps the chunk's weights in shared memory (read as broadcasts)
-// and its 32 sums in registers. The tensor-core version (mma/wgmma on
-// fp16 operands, f32 accumulation) and TMA staging come later.
+// Numerics: the near-tie rule of lfi_common.cuh (exact fp16 operands, f32
+// tensor-core sums in ascending steps of 16 over g, round half to even,
+// clip, cast): the byte is clip(rint(exact sum)) wherever the exact sum is
+// further than 2^-8 from a half-integer, else one of the two neighbours;
+// at most 1 LSB from the NumPy oracle (ops/reference.py blend_fixed) and
+// the plain version. A pixel's byte does not depend on the number of views
+// in the launch, so batches and chunks of views are bit-equal to one pass.
 
 #include "lfi_common.cuh"
 
 namespace {
 
 using lfi::kMaxGrid;
-using lfi::kTileX;
+using lfi::kThreads;
 using lfi::kViewChunk;
 
-constexpr int kMaxQuiltViews = 256;  // largest cols * rows of a quilt
+constexpr int kNT = 4;  // 8-pixel mma column tiles per warp: 128-pixel tiles
+using Tile = lfi::BlendTile<kNT>;
+
+// The five aligned 4-byte words that cover the 16 pixels
+// img_row[sx0 .. sx0 + 16) when the span lies inside the row. The words may
+// cover up to 3 bytes on either side of the span, inside the tensor
+// [lo, hi) but outside the row. A span that touches an edge of the row (or
+// the tensor's first or last bytes) is an `edge` span: its words stay zero
+// and finish_span16 loads it byte by byte. A span of a row that is not
+// `real` (a zero row that pads G) has zero words and is no edge span.
+// Issued apart from their use and without a branch, so that a thread's
+// loads of several spans are in flight together.
+struct Span16 {
+  uint32_t wd[5];
+  uint32_t shift;  // bits to drop from wd[0]
+  bool edge;
+};
+
+__device__ __forceinline__ Span16 load_span16(const uint8_t* __restrict__ img_row,
+                                              int W, int sx0, bool real,
+                                              const uint8_t* lo, const uint8_t* hi) {
+  Span16 s;
+  const uintptr_t ai = reinterpret_cast<uintptr_t>(img_row + sx0);
+  const uint32_t* const a0 = reinterpret_cast<const uint32_t*>(ai & ~(uintptr_t)3);
+  s.shift = (uint32_t)(ai & 3) * 8;
+  const bool inside = sx0 >= 0 && sx0 + 16 <= W &&
+                      reinterpret_cast<const uint8_t*>(a0) >= lo &&
+                      reinterpret_cast<const uint8_t*>(a0 + 5) <= hi;
+  s.edge = real && !inside;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) s.wd[k] = (real && inside) ? __ldg(a0 + k) : 0u;
+  return s;
+}
+
+// 16 pixels img_row[clamp(sx0 + k, 0, W - 1)], k = 0..15, as fp16 to dst
+// (32 bytes, 16-byte aligned): from the words of load_span16, or, for an
+// edge span, from clamped byte loads.
+__device__ __forceinline__ void finish_span16(const Span16& s,
+                                              const uint8_t* __restrict__ img_row,
+                                              int W, int sx0, __half* dst) {
+  uint32_t px[4];
+  if (!s.edge) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) px[k] = __funnelshift_r(s.wd[k], s.wd[k + 1], s.shift);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        word |= (uint32_t)img_row[lfi::clamp_index(sx0 + 4 * k + b, W)] << (8 * b);
+      px[k] = word;
+    }
+  }
+  uint4 h[2];
+  h[0].x = lfi::bytes_to_half2(px[0], 0x4140);
+  h[0].y = lfi::bytes_to_half2(px[0], 0x4342);
+  h[0].z = lfi::bytes_to_half2(px[1], 0x4140);
+  h[0].w = lfi::bytes_to_half2(px[1], 0x4342);
+  h[1].x = lfi::bytes_to_half2(px[2], 0x4140);
+  h[1].y = lfi::bytes_to_half2(px[2], 0x4342);
+  h[1].z = lfi::bytes_to_half2(px[3], 0x4140);
+  h[1].w = lfi::bytes_to_half2(px[3], 0x4342);
+  reinterpret_cast<uint4*>(dst)[0] = h[0];
+  reinterpret_cast<uint4*>(dst)[1] = h[1];
+}
 
 // kQuilt: `out` is the [C, (V / cols) * H, cols * W] canvas, else [V, C, H, W].
+// Dynamic shared memory: Tile::smem_bytes(padded_grid(G), 1).
 template <bool kQuilt>
-__global__ void __launch_bounds__(kTileX)
-shift_blend_kernel(const uint8_t* __restrict__ img,   // [G, C, H, W]
-                   const float* __restrict__ w,       // [V, G]
-                   const int32_t* __restrict__ shifts, // [G, 2] (dx, dy), |dx|<=W, |dy|<=H
+__global__ void __launch_bounds__(kThreads)
+shift_blend_kernel(const uint8_t* __restrict__ img,    // [G, C, H, W]
+                   const float* __restrict__ w,        // [V, G], fp16-valued
+                   const int32_t* __restrict__ shifts,  // [G, 2] (dx, dy), |dx|<=W, |dy|<=H
                    uint8_t* __restrict__ out,
                    int G, int C, int H, int W, int V, int cols,
-                   int64_t tiles_x) {
-  __shared__ float w_s[kViewChunk * kMaxGrid];
+                   int tiles_x) {
+  extern __shared__ uint4 smem[];
   __shared__ int src_row[kMaxGrid];  // clamp(y + dy_g, 0, H-1)
   __shared__ int dx_s[kMaxGrid];
-  // kQuilt: view v's tile origin in a canvas plane, so that no thread
-  // divides by cols in its store loop.
-  __shared__ int64_t tile_s[kQuilt ? kMaxQuiltViews : 1];
 
-  const int64_t block = blockIdx.x;
-  const int64_t row = block / tiles_x;        // c * H + y
-  const int x = (int)(block - row * tiles_x) * kTileX + threadIdx.x;
-  const int c = (int)(row / H);
-  const int y = (int)(row - (int64_t)c * H);
+  const int Gp = lfi::padded_grid(G);
+  __half* const w_s = reinterpret_cast<__half*>(smem);
+  uint8_t* const out_s = reinterpret_cast<uint8_t*>(smem) + Tile::w_bytes(Gp);
+  __half* const x_s = reinterpret_cast<__half*>(out_s + Tile::out_bytes());
 
-  for (int g = threadIdx.x; g < G; g += kTileX) {
+  const int y = blockIdx.x / tiles_x;
+  const int x0 = (blockIdx.x - y * tiles_x) * Tile::kP;
+
+  for (int g = threadIdx.x; g < G; g += kThreads) {
     src_row[g] = lfi::clamp_index(y + shifts[2 * g + 1], H);
     dx_s[g] = shifts[2 * g];
   }
+  __syncthreads();
 
   const int64_t plane = (int64_t)H * W;
   const int64_t canvas_w = (int64_t)cols * W;
-  if (kQuilt)
-    for (int v = threadIdx.x; v < V; v += kTileX)
-      tile_s[v] = (int64_t)(v / cols) * H * canvas_w + (int64_t)(v % cols) * W;
-  uint8_t* const px =
-      kQuilt ? out + (int64_t)c * (V / cols) * H * canvas_w + y * canvas_w + x
-             : out + (int64_t)c * plane + (int64_t)y * W + x;
-  lfi::blend_views<kQuilt>(w, G, V, x < W, w_s, [&](int v) {
-                     return kQuilt ? px + tile_s[v] : px + v * ((int64_t)C * plane);
-                   }, [&](int g) {
-                     const int sx = lfi::clamp_index(x + dx_s[g], W);
-                     return (float)img[((int64_t)g * C + c) * plane +
-                                       (int64_t)src_row[g] * W + sx];
-                   });
+  const uint8_t* const img_end = img + (int64_t)G * C * plane;
+  constexpr int kSpans = Tile::kP / 16;  // 16-pixel spans per staged row
+  constexpr int kBatch = 4;  // spans a thread has in flight
+
+  for (int c = 0; c < C; ++c) {
+    // A thread's spans, kBatch at a time: all their words are loaded
+    // before the first is converted, so the loads' latencies overlap.
+    // Rows g >= G are the zero rows that pad G to a multiple of 16.
+    for (int q0 = threadIdx.x; q0 < Gp * kSpans; q0 += kBatch * kThreads) {
+      Span16 span[kBatch];
+      const uint8_t* row[kBatch];
+      int sx0[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int q = q0 + u * kThreads;
+        const int g = q / kSpans;
+        const bool real = g < G;
+        row[u] = img + ((int64_t)(real ? g : 0) * C + c) * plane +
+                 (int64_t)(real ? src_row[g] : 0) * W;
+        sx0[u] = x0 + (q - g * kSpans) * 16 + (real ? dx_s[g] : 0);
+        span[u] = load_span16(row[u], W, sx0[u], real, img, img_end);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int q = q0 + u * kThreads;
+        if (q < Gp * kSpans)
+          finish_span16(span[u], row[u], W, sx0[u],
+                        x_s + (q / kSpans) * Tile::kXStride + (q % kSpans) * 16);
+      }
+    }
+    for (int v0 = 0; v0 < V; v0 += kViewChunk) {
+      const int vn = V - v0 < kViewChunk ? V - v0 : kViewChunk;
+      if (c == 0 || V > kViewChunk) lfi::stage_weights(w, G, Gp, v0, vn, w_s);
+      __syncthreads();
+      lfi::blend_tile<kNT>(x_s, w_s, out_s, Gp, v0, vn, x0, W, [&](int v) {
+        if (kQuilt)  // view v's tile (v / cols, v % cols) of channel c's canvas plane
+          return out + ((int64_t)c * (V / cols) * H + (int64_t)(v / cols) * H + y) * canvas_w +
+                 (int64_t)(v % cols) * W + x0;
+        return out + ((int64_t)v * C + c) * plane + (int64_t)y * W + x0;
+      });
+    }
+  }
+}
+
+template <bool kQuilt>
+int launch(const uint8_t* img, const float* w, const int32_t* shifts, uint8_t* out,
+           int G, int C, int H, int W, int V, int cols, cudaStream_t stream) {
+  const int64_t tiles_x = (W + Tile::kP - 1) / Tile::kP;
+  const int64_t blocks = (int64_t)H * tiles_x;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = Tile::smem_bytes(lfi::padded_grid(G), 1);
+  // More than 48 KB of shared memory must be asked for; a refusal is the
+  // launch's error.
+  cudaError_t err = cudaFuncSetAttribute(shift_blend_kernel<kQuilt>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  shift_blend_kernel<kQuilt><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      img, w, shifts, out, G, C, H, W, V, cols, (int)tiles_x);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -102,39 +224,26 @@ extern "C" {
 
 // Largest G the kernel takes (the wrapper checks against it).
 int lfi_shift_blend_max_grid(void) { return kMaxGrid; }
-// Largest cols * rows the quilt instantiation takes.
-int lfi_quilt_blend_max_views(void) { return kMaxQuiltViews; }
 
 // Launches on `stream`; does not synchronise and allocates nothing.
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns the launch's CUDA error (0 on success).
 int lfi_shift_blend(const uint8_t* img, const float* w, const int32_t* shifts,
                     uint8_t* out, int G, int C, int H, int W, int V,
                     cudaStream_t stream) {
   if (G < 1 || G > kMaxGrid || C < 1 || H < 1 || W < 1 || V < 1)
     return (int)cudaErrorInvalidValue;
-  const int64_t tiles_x = (W + kTileX - 1) / kTileX;
-  const int64_t blocks = (int64_t)C * H * tiles_x;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  shift_blend_kernel<false><<<(unsigned)blocks, kTileX, 0, stream>>>(
-      img, w, shifts, out, G, C, H, W, V, 1, tiles_x);
-  return (int)cudaGetLastError();
+  return launch<false>(img, w, shifts, out, G, C, H, W, V, 1, stream);
 }
 
 // The quilt instantiation: blends views 0..cols*rows-1 (the first
-// cols * rows <= 256 rows of `w`) straight into the canvas `out`,
+// cols * rows rows of `w`) straight into the canvas `out`,
 // [C, rows * H, cols * W] uint8, view v at tile (v / cols, v % cols).
 int lfi_quilt_blend(const uint8_t* img, const float* w, const int32_t* shifts,
                     uint8_t* out, int G, int C, int H, int W, int cols,
                     int rows, cudaStream_t stream) {
-  if (G < 1 || G > kMaxGrid || C < 1 || H < 1 || W < 1 || cols < 1 ||
-      rows < 1 || cols * rows > kMaxQuiltViews)
+  if (G < 1 || G > kMaxGrid || C < 1 || H < 1 || W < 1 || cols < 1 || rows < 1)
     return (int)cudaErrorInvalidValue;
-  const int64_t tiles_x = (W + kTileX - 1) / kTileX;
-  const int64_t blocks = (int64_t)C * H * tiles_x;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  shift_blend_kernel<true><<<(unsigned)blocks, kTileX, 0, stream>>>(
-      img, w, shifts, out, G, C, H, W, cols * rows, cols, tiles_x);
-  return (int)cudaGetLastError();
+  return launch<true>(img, w, shifts, out, G, C, H, W, cols * rows, cols, stream);
 }
 
 const char* lfi_cuda_error_string(int code) {

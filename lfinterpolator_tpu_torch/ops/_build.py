@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import glob
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -114,6 +115,34 @@ def build(force: bool = False) -> str:
     return LIB_PATH
 
 
+def spills() -> dict[str, int]:
+    """Bytes of register spills (stores + loads) of each kernel of the last
+    build in this process, by mangled name, from ptxas's report."""
+    found = re.findall(
+        r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
+        r"(\d+) bytes spill loads", build_log, flags=re.S)
+    return {name: int(stores) + int(loads) for name, stores, loads in found}
+
+
+def tensor_core_instructions() -> dict[str, int]:
+    """The number of tensor-core instructions (HMMA, HGMMA) in the SASS of
+    each kernel of the built library, by mangled name (``cuobjdump -sass``,
+    which stands beside nvcc)."""
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", build()], capture_output=True,
+                          text=True, check=True).stdout
+    counts: dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        started = re.search(r"Function : (\w+)", line)
+        if started:
+            name = started.group(1)
+            counts[name] = 0
+        elif name is not None and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    return counts
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built at first use and loaded once per process."""
     global _lib
@@ -137,7 +166,6 @@ def load() -> ctypes.CDLL:
                 # (tiles, canvas, C, th, tw, cols, rows, stream)
                 "lfi_quilt_copy": [ptr] * 2 + [i32] * 5 + [ptr],
                 "lfi_shift_blend_max_grid": [],
-                "lfi_quilt_blend_max_views": [],
                 "lfi_allfocus_blend_max_grid": [],
                 "lfi_focus_estimate_max_views": [],
                 "lfi_focus_estimate_max_steps": [],

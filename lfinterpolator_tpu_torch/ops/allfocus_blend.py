@@ -13,9 +13,16 @@ Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version (``blend_torch.render_allfocus``); a CUDA tensor launches the
 kernel, or raises. No path falls back from one to the other.
 
-Numerics: the coordinate rule and the f32 sum in ascending g of
-``reference.blend_allfocus``, so with fp16-valued weights the kernel is
-bit-equal to that oracle.
+Precondition: fp16-valued weights, as ``ops/shift_blend.py`` states it
+(checked where a weight matrix is uploaded, ``state.fp16_valued``).
+
+Numerics: the coordinate rule of ``reference.blend_allfocus``, so the
+select is bit-exact; the sum runs on the tensor cores (fp16 operands, f32
+sums, g in ascending steps of 16) and obeys the near-tie rule
+(``blend_torch.check_bytes``): the byte is ``clip(rint(exact sum))``
+wherever the exact sum is further than 2^-8 from a half-integer, else one
+of the two neighbours -- at most 1 LSB from that oracle and the plain
+version, and independent of the other rows of the weight matrix.
 """
 
 from __future__ import annotations
@@ -70,12 +77,13 @@ def _check(images, weights, offsets, fmap, decode):
 
 def allfocus_blend(
     images: torch.Tensor,  # [G, C, H, W] uint8
-    weights: torch.Tensor,  # [V, G] float32
+    weights: torch.Tensor,  # [V, G] float32, fp16-valued
     offsets: torch.Tensor,  # [G, 2] float32 (x, y)
     fmap: torch.Tensor,  # [H, W] uint8 focus map
     decode: torch.Tensor,  # [256] float32 focus value of each byte
 ) -> torch.Tensor:
-    """All-in-focus render -> [V, C, H, W] uint8 (kernel on CUDA tensors)."""
+    """All-in-focus render -> [V, C, H, W] uint8 (kernel on CUDA tensors).
+    The weights must be fp16-valued (see the module's docstring)."""
     global launches
     _check(images, weights, offsets, fmap, decode)
     if images.device.type == "cpu":

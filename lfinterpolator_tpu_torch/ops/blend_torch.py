@@ -128,6 +128,61 @@ def render_allfocus(
     return blend(allfocus_selected(images, offsets, fmap, decode), weights)
 
 
+def exact_sums(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """[G, ...] u8 x [V, G] fp16-valued -> [V, ...] float64: the sums over g
+    of ``weights[v, g] * stack[g]`` that a blend rounds to bytes, `stack`
+    being the shifted or selected images (``shift_stack``,
+    ``allfocus_selected``) or a part of them (one channel, a block of rows).
+
+    Every product of a u8 and an fp16 value is exact in float64, and so is
+    the sum of up to 256 of them for weights of a render's magnitude, so
+    this is the yardstick ``check_bytes`` holds a blend's bytes against.
+    The result is 8 bytes per output byte: at full size, call it per channel.
+    """
+    g = stack.shape[0]
+    acc = torch.matmul(weights.to(torch.float64),
+                       stack.reshape(g, -1).to(torch.float64))
+    return acc.reshape(weights.shape[0], *stack.shape[1:])
+
+
+def check_bytes(got: torch.Tensor, sums: torch.Tensor,
+                band: float = 2.0 ** -8) -> dict[str, int]:
+    """The near-tie rule: raise ``AssertionError`` unless the bytes `got`
+    are a correct rounding of the exact `sums` (same shape, float64).
+
+    Where a sum lies further than `band` from a half-integer, the byte must
+    equal ``clip(rint(sum), 0, 255)`` exactly; inside the band it may be
+    either of the two neighbouring bytes ``clip(floor(sum))`` and
+    ``clip(floor(sum) + 1)``. A sequential f32 sum of 256 terms <= 255 errs
+    by less than 2^-9 and a tensor-core sum in steps of 16 by less, so the
+    plain version, the NumPy oracle and the kernels all obey the rule, while
+    a wrong operand, a dropped term or another rounding mode does not.
+
+    -> {"bytes": all, "lax": those inside the band, "ties_off": those
+    inside the band that differ from clip(rint(sum))}. The error names the
+    first offending index.
+    """
+    if got.shape != sums.shape or got.dtype != torch.uint8:
+        raise ValueError(f"got {tuple(got.shape)} {got.dtype} against sums "
+                         f"{tuple(sums.shape)}")
+    sums = sums.to(torch.float64)
+    low = torch.floor(sums)
+    lax = ((sums - low) - 0.5).abs() <= band
+    byte = got.to(torch.float64)
+    exact = byte == torch.round(sums).clamp_(0, 255)
+    near = (byte == low.clamp(0, 255)) | (byte == (low + 1).clamp_(0, 255))
+    bad = ~torch.where(lax, near, exact)
+    if bool(bad.any()):
+        idx = tuple(int(i) for i in bad.nonzero()[0])
+        raise AssertionError(
+            f"{int(bad.sum())} of {got.numel()} bytes break the near-tie rule "
+            f"(band {band}); first at {idx}: byte {int(got[idx])}, exact sum "
+            f"{float(sums[idx])!r}"
+        )
+    return {"bytes": got.numel(), "lax": int(lax.sum()),
+            "ties_off": int((lax & ~exact).sum())}
+
+
 def temp_bytes(g: int, v: int, c: int, h: int, w: int) -> int:
     """Device bytes render_fixed holds beyond its input at its peak: the
     shifted u8 stack and its f32 copy beside the f32 product, then the

@@ -7,6 +7,9 @@
     ``blend_pallas._blend_quilt_kernel`` fed by ``shift_pallas._pshift_kernel``
     (``quilt.render_fixed_quilt_padded``). Plain version: the first
     cols*rows views of ``blend_torch.render_fixed``, then the montage.
+    Preconditions and numerics are ``shift_blend``'s: fp16-valued weights,
+    the near-tie rule against the plain version, bit-equal to the tiles of
+    a ``shift_blend`` render.
   * ``quilt_copy`` -- the tile copy of every two-stage quilt
     (``csrc/quilt.cu``). Replaces ``quilt._copy_kernel``. Plain version:
     ``quilt_torch.montage``, a reshape/permute.
@@ -54,7 +57,7 @@ def _raise_on(name: str, err: int, lib) -> None:
 
 def quilt_blend(
     images: torch.Tensor,  # [G, C, H, W] uint8
-    weights: torch.Tensor,  # [V >= cols*rows, G] float32
+    weights: torch.Tensor,  # [V >= cols*rows, G] float32, fp16-valued
     shifts: torch.Tensor,  # [G, 2] int32 (dx, dy)
     cols: int = 5,
     rows: int = 9,
@@ -79,11 +82,6 @@ def quilt_blend(
         raise ValueError(
             f"the kernel takes at most {lib.lfi_shift_blend_max_grid()} "
             f"grid images, got {g}"
-        )
-    if n > lib.lfi_quilt_blend_max_views():
-        raise ValueError(
-            f"the kernel takes at most {lib.lfi_quilt_blend_max_views()} "
-            f"quilt views, got {cols}x{rows}"
         )
     clipped = shift_blend.clip_shifts(shifts, h, w)
     with torch.cuda.device(images.device):

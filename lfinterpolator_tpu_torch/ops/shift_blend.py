@@ -12,9 +12,22 @@ Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version (``shift_blend_reference``, the STD torch ops); a CUDA tensor
 launches the kernel, or raises. No path falls back from one to the other.
 
-Numerics: the kernel sums in f32 in ascending g with separately rounded
-multiply and add, so with fp16-valued weights (every product exact) it is
-bit-equal to the NumPy oracle ``reference.blend_fixed``.
+Precondition: fp16-valued weights. The kernel contracts on the tensor
+cores with fp16 operands; u8 pixels and weights that float16 holds exactly
+make every product exact. ``state.upload_params``/``upload_allfocus`` check
+each weight matrix where it is uploaded (``state.fp16_valued``, NumPy, no
+device sync) and raise ``ValueError`` otherwise; a caller that builds its
+own tensors quantizes them first (``geometry.quantize_weights_f16``).
+
+Numerics: f32 sums on the tensor cores, g in ascending steps of 16, round
+half to even, clip, cast. The tensor cores add inside a step in their own
+order, so the kernel is not bit-equal to a sequential sum. It obeys the
+near-tie rule (``blend_torch.check_bytes``): where the exact sum lies
+further than 2^-8 from a half-integer the byte is ``clip(rint(sum))``
+exactly, elsewhere one of the two neighbouring bytes -- at most 1 LSB from
+the NumPy oracle ``reference.blend_fixed`` and the plain version. A byte
+does not depend on the other rows of the weight matrix: a batch or chunk
+of views is bit-equal to the same rows of one pass.
 """
 
 from __future__ import annotations
@@ -82,10 +95,11 @@ def clip_shifts(shifts: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 def shift_blend(
     images: torch.Tensor,  # [G, C, H, W] uint8
-    weights: torch.Tensor,  # [V, G] float32
+    weights: torch.Tensor,  # [V, G] float32, fp16-valued
     shifts: torch.Tensor,  # [G, 2] int32 (dx, dy)
 ) -> torch.Tensor:
-    """Fixed-focus render -> [V, C, H, W] uint8 (kernel on CUDA tensors)."""
+    """Fixed-focus render -> [V, C, H, W] uint8 (kernel on CUDA tensors).
+    The weights must be fp16-valued (see the module's docstring)."""
     global launches
     check_operands(images, weights, shifts)
     if images.device.type == "cpu":

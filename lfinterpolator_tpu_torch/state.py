@@ -162,17 +162,40 @@ def allfocus_params(
     )
 
 
+def fp16_valued(weights: np.ndarray) -> np.ndarray:
+    """`weights` as contiguous float32, after checking that float16 holds
+    every value exactly.
+
+    The blend kernels contract on the tensor cores with fp16 operands, so a
+    weight that fp16 cannot hold (a float32 with more than 11 significant
+    bits, beyond +-65504, or not finite) would be rounded silently on the
+    card. Every weight matrix is checked here, in NumPy, where it is
+    uploaded -- for the CPU too, so that both devices take the same inputs
+    -- and the kernels' wrappers state fp16-valued weights as their
+    precondition. ``geometry.quantize_weights_f16`` makes such a matrix."""
+    w = np.ascontiguousarray(weights, dtype=np.float32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        exact = np.array_equal(w.astype(np.float16).astype(np.float32), w)
+    if not exact:
+        raise ValueError(
+            "the weight matrix holds values that float16 cannot represent "
+            "exactly; quantize it first (geometry.quantize_weights_f16)"
+        )
+    return w
+
+
 def upload_allfocus(
     params: AllFocusParams, device
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, FocusTables]:
     """-> (weights [V, G] f32, offsets [G, 2] f32, focus_ids [K] int64,
-    tables) on device."""
+    tables) on device. Raises ValueError unless the weights are fp16-valued
+    (``fp16_valued``)."""
 
     def up(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return (
-        up(params.weights),
+        up(fp16_valued(params.weights)),
         up(params.offsets),
         up(params.focus_ids.astype(np.int64)),
         FocusTables(*(up(t) for t in params.tables)),
@@ -188,8 +211,9 @@ def upload_images(lf_images_np: np.ndarray, device) -> torch.Tensor:
 def upload_params(
     weights_np: np.ndarray, focused_offsets_np: np.ndarray, device
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (weights [V, G] float32, shifts [G, 2] int32 (dx, dy)) on device."""
-    weights = np.ascontiguousarray(weights_np, dtype=np.float32)
+    """-> (weights [V, G] float32, shifts [G, 2] int32 (dx, dy)) on device.
+    Raises ValueError unless the weights are fp16-valued (``fp16_valued``)."""
+    weights = fp16_valued(weights_np)
     shifts = np.ascontiguousarray(focused_offsets_np, dtype=np.int32)
     return torch.from_numpy(weights).to(device), torch.from_numpy(shifts).to(device)
 

@@ -146,7 +146,8 @@ def test_cli_help_and_missing_required(capsys):
 
 def test_to_device_state_roundtrip(small_lf):
     images, (cols, rows) = small_lf
-    wm = np.random.default_rng(5).random((7, cols * rows)).astype(np.float32)
+    wm = (np.random.default_rng(5).random((7, cols * rows))
+          .astype(np.float16).astype(np.float32))  # fp16-valued, as uploads must be
     fo = np.arange(2 * cols * rows, dtype=np.int32).reshape(-1, 2) - 9
     x, w, s = to_device_state(images, wm, fo, "cpu")
     assert x.shape == (cols * rows, 3, 48, 64) and x.dtype == torch.uint8
