@@ -14,7 +14,8 @@ order; any failure raises and the script exits non-zero:
   2. build the CUDA kernels from lfinterpolator_tpu_torch/csrc/ (one nvcc
      per source, in parallel) and print ptxas's report of each kernel and
      the tensor-core instructions (HMMA/HGMMA) in each kernel's SASS: the
-     blend kernels must hold some and spill nothing;
+     blend kernels must hold some, and neither they nor the estimate
+     kernels may spill;
   3. shift_blend at full size for focus 0.1, -0.35 and 5.0 (the last
      pushes shifts past the image): the near-tie rule against the exact
      float64 sums and at most 1 LSB from its plain PyTorch version on
@@ -30,8 +31,11 @@ order; any failure raises and the script exits non-zero:
      resolution, written as PNGs: 64 PNGs that decode equal to the API's
      render of the same grid;
   7. focus_estimate, both tap rules, against its plain version at full
-     size on a seeded random stack (focus 0.1, range 0.3; torch.equal),
-     both timed;
+     size (torch.equal): on a seeded random stack at focus 0.1, range 0.3,
+     both timed, with the share of (candidate, pixel) pairs on the exact
+     rule's nine-tap loop and the times of the map pass, the argmin pass
+     and the nine-tap loop alone; on the same stack at the focus of a small
+     sweep where that share is largest; and on a three-plane scene;
   8. allfocus_blend at full size, on phase 7's raw map and its filtered
      map: the near-tie rule against the exact sums of the selected stack
      and at most 1 LSB from its plain version; both timed;
@@ -147,6 +151,10 @@ def phase2_build() -> None:
         raise AssertionError(f"a blend kernel spills registers: {spills}")
     if len(mma) != 3 or not all(mma.values()):
         raise AssertionError(f"a blend kernel holds no tensor-core instruction: {mma}")
+    est = {k: v for k, v in _build.spills().items() if "cheby_map" in k or "argmin" in k}
+    log(f"[2] estimate kernels (map pass, argmin pass x 3): spill bytes {list(est.values())}")
+    if len(est) != 4 or any(est.values()):
+        raise AssertionError(f"an estimate kernel spills or is missing: {est}")
 
 
 def weights_and_shifts(cols, rows, h, w, focus):
@@ -431,6 +439,61 @@ def allfocus_setup(focus, focus_range, cols, rows, h, w, exact=True,
     return p, *state.upload_allfocus(p, "cuda")
 
 
+def slow_share(torch, p) -> float:
+    """The share of (candidate, pixel) pairs that the exact rule's clean
+    flags send down the nine-tap loop, for the host params `p` (CPU ops)."""
+    from lfinterpolator_tpu_torch.ops import focus_torch
+    from lfinterpolator_tpu_torch.state import FocusTables
+
+    return focus_torch.slow_share(*focus_torch.clean_flags(
+        torch.from_numpy(p.offsets[p.focus_ids]),
+        FocusTables(*(torch.from_numpy(t) for t in p.tables)), p.radius, H, W))
+
+
+def estimate_equal(torch, name, args, errs) -> dict:
+    """Both tap rules of focus_estimate against the plain version on `args`
+    (selected, sel_offsets, tables, radius); -> the maps by rule. The
+    largest byte difference measured goes into `errs` by rule (kept at its
+    maximum over the calls); anything but equal maps raises."""
+    from lfinterpolator_tpu_torch.ops import focus_estimate
+
+    maps = {}
+    for rule, exact in (("exact", True), ("fast", False)):
+        got = focus_estimate.focus_estimate(*args, exact)
+        want = focus_estimate.focus_estimate_reference(*args, exact)
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        if err or not torch.equal(got, want):
+            raise AssertionError(
+                f"focus_estimate ({rule}) != plain version {name}: "
+                f"{int((got != want).sum())} bytes differ, max {err}")
+        errs[rule] = max(errs.get(rule, 0), err)
+        maps[rule] = got
+    return maps
+
+
+def estimate_parts_equal(torch, selected, sel_offsets, tables, radius) -> None:
+    """The estimate's other two kernels, each alone against its plain
+    version at the main path's shapes: the RGBx pack on all the focus views,
+    the map pass on the first and the last candidate."""
+    from lfinterpolator_tpu_torch.ops import focus_estimate, focus_torch
+
+    words = focus_estimate.rgbx(selected)
+    if not torch.equal(words, focus_estimate.rgbx_reference(selected)):
+        raise AssertionError("rgbx != plain version")
+    log(f"[7] rgbx: kernel == plain on {words.numel()} words {tuple(words.shape)}")
+    del words
+    maps = focus_estimate.cheby_maps(selected, sel_offsets, tables, radius)
+    for i in (0, maps.shape[0] - 1):
+        want = focus_torch.cheby_map(selected, sel_offsets, tables.candidates[i], radius)
+        if not torch.equal(maps[i], want):
+            raise AssertionError(
+                f"cheby_maps[{i}] != plain version: {int((maps[i] != want).sum())} "
+                f"bytes differ, max {int((maps[i].int() - want.int()).abs().max())}")
+    log(f"[7] cheby_maps: kernel == plain on candidates 0 and {maps.shape[0] - 1}, "
+        f"{maps[0].numel()} bytes each {tuple(maps.shape)}")
+
+
 def phase7_estimate_vs_plain(torch, np, stack, smi) -> tuple:
     from lfinterpolator_tpu_torch.ops import focus_estimate
     from lfinterpolator_tpu_torch.state import upload_images
@@ -440,27 +503,46 @@ def phase7_estimate_vs_plain(torch, np, stack, smi) -> tuple:
     selected, sel_offsets = images[ids], offsets[ids]
     log(f"[7] K={len(ids)} focus views, {len(p.tables.candidates)} candidates, "
         f"radius {p.radius}, filter radius {p.filter_radius}")
-    stats, maps = {}, {}
+    base = (selected, sel_offsets, tables, p.radius)
+    errs = {}
+    maps = estimate_equal(torch, "on the random stack at focus 0.1", base, errs)
+    estimate_parts_equal(torch, *base)
+    timed = {}
     for rule, exact in (("exact", True), ("fast", False)):
-        args = (selected, sel_offsets, tables, p.radius, exact)
-        got = focus_estimate.focus_estimate(*args)
-        want = focus_estimate.focus_estimate_reference(*args)
-        torch.cuda.synchronize()
-        err = int((got.int() - want.int()).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"focus_estimate ({rule}) != plain version: "
-                f"{int((got != want).sum())} bytes differ, max {err}"
-            )
+        args = (*base, exact)
         ms = event_ms(torch, lambda: focus_estimate.focus_estimate(*args), runs=5)
         plain_ms = event_ms(
             torch, lambda: focus_estimate.focus_estimate_reference(*args), runs=2)
-        stats[rule] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        maps[rule] = got
-        log(f"[7] {rule}: kernel == plain on {got.numel()} map bytes "
-            f"({len(torch.unique(got))} distinct); kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms ({smi})")
-    del selected
+        parts = focus_estimate.pass_times(*args)
+        timed[rule] = {"ms": ms, "plain_ms": plain_ms, **parts}
+        log(f"[7] {rule}: kernels == plain on {maps[rule].numel()} map bytes "
+            f"({len(torch.unique(maps[rule]))} distinct); estimate {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms; parts, each alone: "
+            + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in parts.items()) + f" ({smi})")
+    # the focus of a small sweep at which the nine-tap loop has most to do
+    shares = {f: slow_share(torch, allfocus_setup(f, 0.3, COLS, ROWS, H, W)[0])
+              for f in (-0.6, -0.3, 0.0, 0.3)}
+    worst = max(shares, key=shares.get)
+    pw, _, offsets_w, ids_w, tables_w = allfocus_setup(worst, 0.3, COLS, ROWS, H, W)
+    args_w = (selected, offsets_w[ids_w], tables_w, pw.radius)
+    estimate_equal(torch, f"at focus {worst}", args_w, errs)
+    worst_ms = event_ms(torch, lambda: focus_estimate.focus_estimate(*args_w), runs=5)
+    log(f"[7] slow share by focus {shares}: at focus {worst} both rules == plain; "
+        f"exact estimate {worst_ms:.3f} ms ({smi})")
+    # a coherent scene: three textured planes at candidates of the search
+    cands = p.tables.candidates
+    planes = cands[[0, len(cands) // 2, len(cands) - 1]]
+    scene = torch.from_numpy(structured_selected(
+        np, p.offsets[p.focus_ids], planes, SEED + 7)).cuda()
+    on_scene = estimate_equal(torch, "on the three-plane scene",
+                              (scene, sel_offsets, tables, p.radius), errs)
+    log(f"[7] three-plane scene (planes {planes.tolist()}): both rules == plain; "
+        f"distinct map bytes exact {len(torch.unique(on_scene['exact']))}, "
+        f"fast {len(torch.unique(on_scene['fast']))}")
+    del selected, scene
+    # max_abs_err: the largest over this phase's three comparisons of a rule
+    stats = {rule: {"max_abs_err": errs[rule], **timed[rule]} for rule in timed}
     return stats, (p, images, weights, offsets, tables, maps["exact"])
 
 
@@ -931,9 +1013,12 @@ def phase18_cli(torch, np, lf) -> None:
          view_files(np, af.views, af.maps))])
 
 
-# H100 SXM peaks (NVIDIA's data sheet)
+# H100 SXM peaks (NVIDIA's data sheet). "int32" is the integer rate outside
+# the tensor cores, where a min/max has to run: the sheet's 67 TFLOP/s of
+# fp32 are 2 flops on each of 128 lanes an SM, and 64 of those lanes take
+# integer instructions, so a quarter of that number.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"fp16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"fp16": 989e12, "int8": 1979e12, "int32": 67e12 / 4}
 
 
 def bound(nbytes: float, ops: float, ops_type: str) -> dict:
@@ -1356,9 +1441,14 @@ def main() -> int:
                    "library": "torch.matmul [V, G] x [G, C*H*W] of a pre-shifted stack, "
                               "contraction only (fp16; library_f32_ms: f32, TF32 off)"}
     # the estimate reads the RGBx words once and writes the map; its
-    # byte-lane min/max (vminu4/vmaxu4, 3 channels, per tap, view and
-    # candidate) at the table's int8 rate
-    est_bound = bound(4 * k * H * W + H * W, 6 * 9 * k * s_ * H * W, "int8")
+    # operations are the word min/max of the hoisted formulation (a min and
+    # a max per view, candidate and pixel of the frame extended by the
+    # radius), at the integer rate outside the tensor cores
+    from lfinterpolator_tpu_torch.core import geometry
+
+    rx, ry = geometry.block_radius(W, H)  # phase 7's stencil radius
+    est_ops = 2 * k * s_ * (H + 2 * ry) * (W + 2 * rx)
+    est_bound = bound(4 * k * H * W + H * W, est_ops, "int32")
     no_library = {"library_ms": None, "library": "none: no PyTorch call computes it"}
     src = "lfinterpolator_tpu_torch/csrc/"
     kernels = [
@@ -1394,8 +1484,8 @@ def main() -> int:
                      "(_est_kernel, predicated=True: :320-338, 502, 540; entries "
                      "_estimate_fused_pres :1238, estimate_fused_pyramid :1251)",
          "launches": pyr_launches, **k9,
-         **bound(4 * k * H * W + H * W, 6 * 9 * k * s_ * H * W
-                 * float(pyr["random_density"].split()[0]), "int8"),
+         **bound(4 * k * H * W + H * W,
+                 est_ops * float(pyr["random_density"].split()[0]), "int32"),
          **no_library},
         {"name": "quilt_blend", "route": "cuda", "source": src + "shift_blend.cu",
          "replaces": "lfinterpolator_tpu/ops/blend_pallas.py:311 (_blend_quilt_kernel), "

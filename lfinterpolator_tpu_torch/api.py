@@ -453,6 +453,11 @@ class Interpolator:
         group's first center; members of a merged group render with that
         first member's center (its offsets, focus views and maps), an
         approximation for jittered serving traffic.
+
+        An empty list of trajectories returns an empty list: there is no
+        group to render, and nothing is planned, uploaded or launched. (The
+        JAX package raises ``ValueError`` from ``np.stack`` there, which no
+        caller can want; the arguments are still validated.)
         """
         cfg, method_key = self._config(focus, focus_range, method, effect, aspect)
         lf = self.lf

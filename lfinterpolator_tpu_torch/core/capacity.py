@@ -15,10 +15,13 @@ own budget is unbounded.
 
 What a render holds beyond the stack, uint8 unless noted (``plan_render``):
 
-  estimate (all in focus, K focus views): the K views gathered
-            [K, C, H, W], their RGBx words [K, H, W, 4] for the estimate
-            kernel, the maps [2, H, W] and the box filter's int64 integral
-            image;
+  estimate (all in focus, K focus views; ``estimate_bytes``): the K views
+            gathered [K, C, H, W], their RGBx words [K, H, W, 4] for the
+            estimate kernels and those kernels' scratch (the per-candidate
+            maps of one chunk and the running best,
+            ``focus_estimate.SCRATCH_BYTES_PER_PIXEL`` a pixel), the maps
+            [2, H, W] and the box filter's int64 integral image. The clean
+            flags and their temporaries (under 64 MiB) go to the headroom;
   render:   per view the kernel's planar output [C, H, W] and its
             [H, W, C] copy for the download; STD's plain ops add
             ``blend_torch.temp_bytes`` (the shifted stack, its f32 copy and
@@ -40,7 +43,7 @@ import os
 
 import torch
 
-from ..ops import blend_torch
+from ..ops import blend_torch, focus_estimate
 
 #: The budget reported where no device memory limits a render (the CPU).
 UNBOUNDED = 1 << 62
@@ -70,6 +73,14 @@ def _headroom(budget: int) -> int:
 
 def _units(*nbytes: int) -> tuple[str, float]:
     return ("GiB", 2.0**30) if max(nbytes) >= 2**30 else ("MiB", 2.0**20)
+
+
+def estimate_bytes(focus_views: int, c: int, h: int, w: int) -> int:
+    """Peak bytes of the focus-map phase of an all-in-focus render (module
+    docstring); 0 without focus views."""
+    if not focus_views:
+        return 0
+    return (focus_views * (c + 4) + focus_estimate.SCRATCH_BYTES_PER_PIXEL + 48) * h * w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,7 +118,7 @@ def plan_render(
     b = device_hbm_bytes(device) if budget is None else budget
     b_eff = b - _headroom(b)
     n = c * h * w
-    estimate = focus_views * (c + 4) * h * w + 48 * h * w if focus_views else 0
+    estimate = estimate_bytes(focus_views, c, h, w)
     maps = 2 * h * w if focus_views else 0
     std = method == "STD" and not focus_views
 

@@ -155,12 +155,17 @@ def load() -> ctypes.CDLL:
                 "lfi_shift_blend": [ptr] * 4 + [i32] * 5 + [ptr],
                 # (img, w, offs, map, decode, out, G, C, H, W, V, stream)
                 "lfi_allfocus_blend": [ptr] * 6 + [i32] * 5 + [ptr],
-                # (views, offs, cands, cand_bytes, out, K, H, W, S, rx, ry,
-                #  exact, stream)
-                "lfi_focus_estimate": [ptr] * 5 + [i32] * 7 + [ptr],
-                # (views, offs, cands, cand_bytes, pres, out, K, H, W, S, rx,
-                #  ry, tb, wco, sc, nb, n_wc, cc, stream)
-                "lfi_focus_estimate_pres": [ptr] * 6 + [i32] * 12 + [ptr],
+                # (planar, words, K, C, P, stream)
+                "lfi_rgbx_pack": [ptr] * 2 + [i32] * 2 + [ctypes.c_int64, ptr],
+                # (views, offs, cands, d, K, H, W, n, rx, ry, stream)
+                "lfi_focus_cheby_map": [ptr] * 4 + [i32] * 6 + [ptr],
+                # (views, offs, cands, cand_bytes, d, row_clean, col_clean,
+                #  best, out, K, H, W, S, rx, ry, c0, n, stream)
+                "lfi_focus_estimate": [ptr] * 9 + [i32] * 8 + [ptr],
+                # (views, offs, cands, cand_bytes, d, row_clean, col_clean,
+                #  best, pres, out, K, H, W, S, rx, ry, c0, n, tb, wco, sc,
+                #  nb, n_wc, cc, stream)
+                "lfi_focus_estimate_pres": [ptr] * 10 + [i32] * 14 + [ptr],
                 # (img, w, shifts, canvas, G, C, H, W, cols, rows, stream)
                 "lfi_quilt_blend": [ptr] * 4 + [i32] * 6 + [ptr],
                 # (tiles, canvas, C, th, tw, cols, rows, stream)

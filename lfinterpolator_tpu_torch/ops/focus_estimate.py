@@ -1,26 +1,38 @@
-"""Focus-map estimate: wrapper of the hand-written Hopper kernel.
+"""Focus-map estimate: wrapper of the hand-written Hopper kernels.
 
-One CUDA kernel (``csrc/focus_estimate.cu``), instantiated once per tap
-rule and once more for the presence-predicated refine pass, replaces the
-JAX package's fused estimate kernels: ``estimate_pallas._est_kernel``
-(exact taps, the default), ``estimate_pallas._est_fast_kernel``
-(``--fast-focus``) and ``_est_kernel(predicated=True)`` (the refine pass of
-``--focus-pyramid``, ``pres=``). It computes what
-``focus_torch.estimate_focus_map`` computes (``estimate_presence`` with
-``pres``), its plain version. ``focus_estimate_pyramid`` drives the
-coarse-to-fine estimate: the coarse pass on the exact kernel, the presence
-words in torch ops on the tensors' device, the refine on the predicated
-kernel.
+The CUDA kernels of ``csrc/focus_estimate.cu`` (the map pass, the argmin
+pass in three instantiations, and the RGBx pack) replace the JAX package's
+fused estimate kernels: ``estimate_pallas._est_kernel`` (exact taps, the
+default), ``estimate_pallas._est_fast_kernel`` (``--fast-focus``) and
+``_est_kernel(predicated=True)`` (the refine pass of ``--focus-pyramid``,
+``pres=``). An estimate is two passes: the map pass computes, per
+candidate, one byte per pixel of the frame extended by the stencil radius
+(the spread ``max_c(max_k - min_k)`` over the focus views); the argmin pass
+sums the nine bytes around each pixel and keeps the first strict minimum.
+The exact tap rule reads those bytes only where they are what it would read
+itself: ``focus_torch.clean_flags`` marks those rows and columns, in torch
+ops on the tensors' device, and every other (candidate, pixel) pair runs the
+nine-tap loop over the views inside the argmin kernel.
+``focus_torch.estimate_hoisted`` states the same in plain ops. The result
+is what ``focus_torch.estimate_focus_map`` computes (``estimate_presence``
+with ``pres``), the plain version. ``focus_estimate_pyramid`` drives the
+coarse-to-fine estimate: the coarse pass on the exact rule, the presence
+words in torch ops, the refine on the predicated instantiation.
 
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
-version; a CUDA tensor launches the kernel, or raises. No path falls back
+version; a CUDA tensor launches the kernels, or raises. No path falls back
 from one to the other.
 
-The kernel reads the K focus views as one interleaved RGBx ``uint32`` word
-per pixel (``rgbx``), so that one 4-byte load serves a tap and
-``__vminu4``/``__vmaxu4`` do the channels at once. The wrapper builds that
-copy with torch ops on each call -- once per render -- and it lives only
-for the launch: ``4 * K * H * W`` bytes (265 MB at K = 32, 1080p).
+Scratch, allocated per call and alive only for the estimate: the K focus
+views as one interleaved RGBx ``uint32`` word per pixel (``rgbx``, a small
+kernel of the same source; ``4 * K * H * W`` bytes: 265 MB at K = 32,
+1080p), so that one 4-byte load serves a tap; the maps of one chunk of
+candidates (``map_chunk``: all of them while they fit
+``MAP_BYTES_PER_PIXEL * H * W`` bytes, 69 MB for 32 candidates at 1080p);
+the running best as one int32 per pixel when there is more than one chunk;
+and the flags, ``S * (H + W)`` bytes.
+``SCRATCH_BYTES_PER_PIXEL`` is what ``core/capacity.py`` counts for the
+maps and the running best.
 """
 
 from __future__ import annotations
@@ -31,21 +43,57 @@ from ..state import FocusTables
 from . import focus_torch
 from .estimate_geometry import Pyramid
 
-#: Kernel launches since import (or since a caller reset them to 0), per
-#: instantiation: the two tap rules and the pyramid's refine pass. Counts
-#: only launches of the CUDA kernel, never plain-version calls.
+#: Estimates run on the CUDA kernels since import (or since a caller reset
+#: the counts to 0), per instantiation: the two tap rules and the pyramid's
+#: refine pass. One per estimate, whatever number of device launches that is
+#: (a map pass and an argmin pass for each chunk of candidates), and counted
+#: only when every one of them was launched; never plain-version calls.
 launches = {"exact": 0, "fast": 0, "pyramid": 0}
+
+#: The maps of one chunk of candidates take at most this many bytes per
+#: frame pixel (but never less than one candidate's map).
+MAP_BYTES_PER_PIXEL = 40
+#: ... and with the running best (one int32 per pixel), what an estimate
+#: holds beside its operands, the RGBx copy and the flags.
+SCRATCH_BYTES_PER_PIXEL = MAP_BYTES_PER_PIXEL + 4
 
 focus_estimate_reference = focus_torch.estimate_focus_map
 
 
-def rgbx(selected: torch.Tensor) -> torch.Tensor:
+def _launched(lib, name: str, err: int) -> None:
+    """Raise unless the C entry `name` returned 0 (its launch was taken)."""
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: CUDA error {err} "
+            f"({lib.lfi_cuda_error_string(err).decode()})"
+        )
+
+
+def rgbx_reference(selected: torch.Tensor) -> torch.Tensor:
     """[K, C<=4, H, W] uint8 -> [K, H, W] int32 words, channel c in byte c
-    (little-endian), unused bytes 0."""
+    (little-endian), unused bytes 0: the plain version of ``rgbx``."""
     k, c, h, w = selected.shape
     out = torch.zeros((k, h, w, 4), dtype=torch.uint8, device=selected.device)
     out[..., :c] = selected.permute(0, 2, 3, 1)
     return out.view(torch.int32).reshape(k, h, w)
+
+
+def rgbx(selected: torch.Tensor) -> torch.Tensor:
+    """``rgbx_reference`` by the pack kernel on a CUDA tensor (one read of
+    the planar views, one write of the words), by torch ops on the CPU."""
+    if selected.device.type != "cuda":
+        return rgbx_reference(selected)
+    from . import _build
+
+    lib = _build.load()
+    k, c, h, w = selected.shape
+    planar = selected.contiguous()
+    with torch.cuda.device(selected.device):
+        out = torch.empty((k, h, w), dtype=torch.int32, device=selected.device)
+        _launched(lib, "lfi_rgbx_pack", lib.lfi_rgbx_pack(
+            planar.data_ptr(), out.data_ptr(), k, c, h * w,
+            torch.cuda.current_stream(selected.device).cuda_stream))
+    return out
 
 
 def _check(selected, sel_offsets, tables: FocusTables, radius):
@@ -94,6 +142,99 @@ def _check_pres(pres: torch.Tensor, plan: Pyramid, selected, steps: int):
         raise ValueError(f"pres on {pres.device}, selected on {selected.device}")
 
 
+def map_chunk(h: int, w: int, radius: tuple[int, int], steps: int) -> int:
+    """The number of candidates whose maps are held at once."""
+    plane = (h + 2 * int(radius[1])) * (w + 2 * int(radius[0]))
+    return max(1, min(steps, MAP_BYTES_PER_PIXEL * h * w // plane))
+
+
+class _Passes:
+    """One estimate's operands and scratch on a CUDA device, and its two
+    passes. The caller holds ``torch.cuda.device(device)``."""
+
+    def __init__(self, selected, sel_offsets, tables: FocusTables, radius):
+        from . import _build
+
+        self.lib = lib = _build.load()
+        k, _, h, w = selected.shape
+        s = tables.candidates.shape[0]
+        if k > lib.lfi_focus_estimate_max_views():
+            raise ValueError(
+                f"the kernel takes at most {lib.lfi_focus_estimate_max_views()} "
+                f"focus views, got {k}"
+            )
+        if s > lib.lfi_focus_estimate_max_steps():
+            raise ValueError(
+                f"the kernel takes at most {lib.lfi_focus_estimate_max_steps()} "
+                f"candidates, got {s}"
+            )
+        dev = selected.device
+        rx, ry = int(radius[0]), int(radius[1])
+        self.dims = (k, h, w, s, rx, ry)
+        self.offsets = sel_offsets.contiguous()
+        self.cands = tables.candidates.contiguous()
+        self.cand_bytes = tables.candidate_bytes.contiguous()
+        self.words = rgbx(selected)
+        self.chunk = map_chunk(h, w, radius, s)
+        self.maps = torch.empty((self.chunk, h + 2 * ry, w + 2 * rx),
+                                dtype=torch.uint8, device=dev)
+        self.best = (torch.empty((h, w), dtype=torch.int32, device=dev)
+                     if self.chunk < s else None)
+        self.out = torch.empty((h, w), dtype=torch.uint8, device=dev)
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def map_pass(self, c0: int, n: int) -> None:
+        """The maps of candidates [c0, c0 + n) into ``self.maps[:n]``."""
+        k, h, w, _, rx, ry = self.dims
+        _launched(self.lib, "lfi_focus_cheby_map", self.lib.lfi_focus_cheby_map(
+            self.words.data_ptr(), self.offsets.data_ptr(),
+            self.cands.data_ptr() + 4 * c0, self.maps.data_ptr(), k, h, w, n,
+            rx, ry, self.stream))
+
+    def argmin_pass(self, c0: int, n: int, flags=None, pres=None, plan=None) -> None:
+        """Candidates [c0, c0 + n) against each pixel's running best; the
+        exact rule with `flags` = (row_clean, col_clean), else the fast."""
+        rows, cols = (f.data_ptr() for f in flags) if flags is not None else (None, None)
+        head = (self.words.data_ptr(), self.offsets.data_ptr(), self.cands.data_ptr(),
+                self.cand_bytes.data_ptr(), self.maps.data_ptr(), rows, cols,
+                None if self.best is None else self.best.data_ptr())
+        if pres is None:
+            _launched(self.lib, "lfi_focus_estimate", self.lib.lfi_focus_estimate(
+                *head, self.out.data_ptr(), *self.dims, c0, n, self.stream))
+        else:
+            _launched(self.lib, "lfi_focus_estimate_pres",
+                      self.lib.lfi_focus_estimate_pres(
+                          *head, pres.data_ptr(), self.out.data_ptr(), *self.dims,
+                          c0, n, plan.tb, plan.wco, plan.sc, plan.nb, plan.n_wc,
+                          pres.shape[2], self.stream))
+
+    def run(self, flags=None, pres=None, plan=None) -> torch.Tensor:
+        """Every chunk's two passes -> the map. `flags` may be a callable
+        that makes them: it runs after the first map pass is enqueued, so
+        its host work overlaps the device's."""
+        s = self.dims[3]
+        for c0 in range(0, s, self.chunk):
+            n = min(self.chunk, s - c0)
+            self.map_pass(c0, n)
+            if callable(flags):
+                flags = flags()
+            self.argmin_pass(c0, n, flags, pres, plan)
+        return self.out
+
+
+def _flag_bytes(flags, steps: int, h: int, w: int, device):
+    """(row_clean [S, H], col_clean [S, W]) as contiguous byte tensors."""
+    rows, cols = flags
+    if (tuple(rows.shape) != (steps, h) or tuple(cols.shape) != (steps, w)
+            or rows.dtype != torch.bool or cols.dtype != torch.bool
+            or rows.device != device or cols.device != device):
+        raise ValueError(
+            f"flags must be bool [{steps}, {h}] and [{steps}, {w}] on {device}, got "
+            f"{tuple(rows.shape)} {rows.dtype} and {tuple(cols.shape)} {cols.dtype}"
+        )
+    return rows.contiguous().view(torch.uint8), cols.contiguous().view(torch.uint8)
+
+
 def focus_estimate(
     selected: torch.Tensor,  # [K, C, H, W] uint8, the focus views
     sel_offsets: torch.Tensor,  # [K, 2] float32 (x, y)
@@ -103,16 +244,40 @@ def focus_estimate(
     pres: torch.Tensor | None = None,  # [NB, N_WC, CC] int32 presence words
     plan: Pyramid | None = None,  # the grain of `pres`
 ) -> torch.Tensor:
-    """Focus map -> [H, W] uint8 (kernel on CUDA tensors).
+    """Focus map -> [H, W] uint8 (kernels on CUDA tensors).
 
     With `pres` (and its `plan`), the exact-taps search over each block's
     present candidates only: the pyramid's refine pass."""
+    return _estimate(selected, sel_offsets, tables, radius, exact_taps, pres, plan)
+
+
+def focus_estimate_flagged(
+    selected: torch.Tensor,
+    sel_offsets: torch.Tensor,
+    tables: FocusTables,
+    radius: tuple[int, int],
+    flags: tuple[torch.Tensor, torch.Tensor],  # row_clean [S, H], col_clean [S, W] bool
+    pres: torch.Tensor | None = None,
+    plan: Pyramid | None = None,
+) -> torch.Tensor:
+    """The exact-taps estimate with the caller's clean flags in place of
+    ``focus_torch.clean_flags``'s. The map is the same as long as `flags`
+    mark clean nothing that those do not; all False runs the nine-tap loop
+    for every (candidate, pixel) pair. For tests and timings."""
+    return _estimate(selected, sel_offsets, tables, radius, True, pres, plan, flags)
+
+
+def _estimate(selected, sel_offsets, tables, radius, exact_taps, pres, plan,
+              flags=None) -> torch.Tensor:
     _check(selected, sel_offsets, tables, radius)
     s = tables.candidates.shape[0]
+    h, w = selected.shape[2:]
     if pres is not None:
         if not exact_taps or plan is None:
             raise ValueError("presence words need exact taps and their plan")
         _check_pres(pres, plan, selected, s)
+    if flags is not None:
+        flags = _flag_bytes(flags, s, h, w, selected.device)
     if selected.device.type == "cpu":
         if pres is not None:
             return focus_torch.estimate_presence(
@@ -123,50 +288,88 @@ def focus_estimate(
     if selected.device.type != "cuda":
         raise ValueError(f"focus_estimate runs on cpu or cuda, not {selected.device}")
 
-    from . import _build
-
-    lib = _build.load()
-    k, _, h, w = selected.shape
-    if k > lib.lfi_focus_estimate_max_views():
-        raise ValueError(
-            f"the kernel takes at most {lib.lfi_focus_estimate_max_views()} "
-            f"focus views, got {k}"
-        )
-    if s > lib.lfi_focus_estimate_max_steps():
-        raise ValueError(
-            f"the kernel takes at most {lib.lfi_focus_estimate_max_steps()} "
-            f"candidates, got {s}"
-        )
-    offsets = sel_offsets.contiguous()
-    cands = tables.candidates.contiguous()
-    cand_bytes = tables.candidate_bytes.contiguous()
     with torch.cuda.device(selected.device):
-        words = rgbx(selected)
-        out = torch.empty((h, w), dtype=torch.uint8, device=selected.device)
-        stream = torch.cuda.current_stream(selected.device).cuda_stream
-        if pres is None:
-            name = "lfi_focus_estimate"
-            err = lib.lfi_focus_estimate(
-                words.data_ptr(), offsets.data_ptr(), cands.data_ptr(),
-                cand_bytes.data_ptr(), out.data_ptr(), k, h, w, s,
-                int(radius[0]), int(radius[1]), int(bool(exact_taps)), stream,
-            )
-        else:
-            name = "lfi_focus_estimate_pres"
-            pres = pres.contiguous()
-            err = lib.lfi_focus_estimate_pres(
-                words.data_ptr(), offsets.data_ptr(), cands.data_ptr(),
-                cand_bytes.data_ptr(), pres.data_ptr(), out.data_ptr(), k, h,
-                w, s, int(radius[0]), int(radius[1]), plan.tb, plan.wco,
-                plan.sc, plan.nb, plan.n_wc, pres.shape[2], stream,
-            )
-    if err != 0:
-        raise RuntimeError(
-            f"{name} launch failed: CUDA error {err} "
-            f"({lib.lfi_cuda_error_string(err).decode()})"
-        )
+        passes = _Passes(selected, sel_offsets, tables, radius)
+        if exact_taps and flags is None:
+            flags = lambda: _flag_bytes(
+                focus_torch.clean_flags(sel_offsets, tables, radius, h, w),
+                s, h, w, selected.device)
+        out = passes.run(flags, None if pres is None else pres.contiguous(), plan)
     launches["pyramid" if pres is not None else
              "exact" if exact_taps else "fast"] += 1
+    return out
+
+
+def cheby_maps(
+    selected: torch.Tensor,  # [K, C, H, W] uint8
+    sel_offsets: torch.Tensor,  # [K, 2] float32 (x, y)
+    tables: FocusTables,
+    radius: tuple[int, int],
+) -> torch.Tensor:
+    """The map pass alone -> [S, H + 2*ry, W + 2*rx] uint8, every
+    candidate's ``focus_torch.cheby_map`` (which a CPU tensor takes)."""
+    _check(selected, sel_offsets, tables, radius)
+    if selected.device.type == "cpu":
+        return torch.stack([focus_torch.cheby_map(selected, sel_offsets, f, radius)
+                            for f in tables.candidates])
+    if selected.device.type != "cuda":
+        raise ValueError(f"cheby_maps runs on cpu or cuda, not {selected.device}")
+    with torch.cuda.device(selected.device):
+        passes = _Passes(selected, sel_offsets, tables, radius)
+        out = []
+        for c0 in range(0, passes.dims[3], passes.chunk):
+            n = min(passes.chunk, passes.dims[3] - c0)
+            passes.map_pass(c0, n)
+            out.append(passes.maps[:n].clone())
+    return torch.cat(out)
+
+
+def event_ms(fn, runs: int = 5) -> float:
+    """CUDA-event ms of one `fn()` on the current device: the mean of `runs`
+    calls back to back, after one that warms up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def pass_times(selected, sel_offsets, tables: FocusTables, radius,
+               exact_taps: bool = True, runs: int = 5) -> dict:
+    """CUDA-event ms of an estimate's parts on CUDA tensors, each over
+    `runs` back-to-back launches on operands prepared once: the RGBx copy,
+    the clean flags (torch ops), the map pass and the argmin pass of the
+    first chunk of candidates (all of them when ``chunk == steps``), the
+    argmin pass with every flag cleared (the nine-tap loop alone) when
+    `exact_taps`; and ``slow_share``, the share of (candidate, pixel) pairs
+    that the flags send down the nine-tap loop."""
+    _check(selected, sel_offsets, tables, radius)
+    s = tables.candidates.shape[0]
+    h, w = selected.shape[2:]
+
+    def ms(fn) -> float:
+        return event_ms(fn, runs)
+
+    with torch.cuda.device(selected.device):
+        passes = _Passes(selected, sel_offsets, tables, radius)
+        n = passes.chunk
+        out = {"chunk": n, "steps": s,
+               "rgbx_ms": ms(lambda: rgbx(selected)),
+               "map_ms": ms(lambda: passes.map_pass(0, n))}
+        flags = None
+        if exact_taps:
+            make = lambda: focus_torch.clean_flags(sel_offsets, tables, radius, h, w)
+            out["flags_ms"] = ms(make)
+            rows, cols = make()
+            out["slow_share"] = focus_torch.slow_share(rows, cols)
+            flags = _flag_bytes((rows, cols), s, h, w, selected.device)
+            dirty = tuple(torch.zeros_like(f) for f in flags)
+            out["nine_tap_ms"] = ms(lambda: passes.argmin_pass(0, n, dirty))
+        out["argmin_ms"] = ms(lambda: passes.argmin_pass(0, n, flags))
     return out
 
 

@@ -54,6 +54,49 @@ def _taps(
     return t.clamp_(0, n - 1).to(torch.int64)
 
 
+def candidate_cost(
+    selected: torch.Tensor,  # [K, C, H, W] uint8
+    offsets: torch.Tensor,  # [K, 2] float32 (x, y)
+    f: torch.Tensor,  # 0-d float32, the candidate
+    radius: tuple[int, int],  # (rx, ry)
+    exact_taps: bool,
+) -> torch.Tensor:
+    """[H, W] int32 cost of one candidate: the sum over the 3x3 stencil of
+    ``max_c(max_k - min_k)`` at the taps of the chosen rule."""
+    k, c, h, w = selected.shape
+    dev = selected.device
+    rx, ry = int(radius[0]), int(radius[1])
+    ys = torch.arange(h, device=dev, dtype=torch.float32)
+    xs = torch.arange(w, device=dev, dtype=torch.float32)
+    ki = torch.arange(k, device=dev)[:, None, None, None]
+    ci = torch.arange(c, device=dev)[None, :, None, None]
+    fy, fx = f * offsets[:, 1], f * offsets[:, 0]  # [K], rounded f32
+    cost = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    for sy in (-ry, 0, ry):
+        rows = _taps(ys, fy, sy, exact_taps)[:, None, :, None]
+        for sx in (-rx, 0, rx):
+            cols = _taps(xs, fx, sx, exact_taps)[:, None, None, :]
+            mn, mx = torch.aminmax(selected[ki, ci, rows, cols], dim=0)
+            cost += (mx.to(torch.int32) - mn.to(torch.int32)).amax(dim=0)
+    return cost
+
+
+def _argmin_bytes(costs, tables: FocusTables, shape, dev, present=None) -> torch.Tensor:
+    """The strict first minimum over `costs` (an iterable of [H, W] int32,
+    one per candidate, in order) -> [H, W] uint8 map bytes. A candidate that
+    is not `present` ([S, H, W] bool) never updates a pixel's best."""
+    best_cost = torch.full(shape, torch.iinfo(torch.int32).max,
+                           dtype=torch.int32, device=dev)
+    best_idx = torch.zeros(shape, dtype=torch.int64, device=dev)
+    for i, cost in enumerate(costs):
+        better = cost < best_cost  # strict: the first minimum wins
+        if present is not None:
+            better &= present[i]
+        best_cost = torch.where(better, cost, best_cost)
+        best_idx.masked_fill_(better, i)
+    return tables.candidate_bytes.to(dev)[best_idx]
+
+
 def estimate_focus_map(
     selected: torch.Tensor,  # [K, C, H, W] uint8, the focus views
     sel_offsets: torch.Tensor,  # [K, 2] float32 (x, y) offsets of those views
@@ -68,34 +111,146 @@ def estimate_focus_map(
     `present` restricts each pixel's search to its present candidates: a
     candidate that is not present never updates the pixel's best
     (``focus.py:377-385``); a pixel with none keeps candidate 0."""
+    dev = selected.device
+    candidates = tables.candidates.to(device=dev, dtype=torch.float32)
+    offsets = sel_offsets.to(device=dev, dtype=torch.float32)
+    costs = (candidate_cost(selected, offsets, f, radius, exact_taps)
+             for f in candidates)
+    return _argmin_bytes(costs, tables, selected.shape[2:], dev, present)
+
+
+# The hoisted formulation, which the estimate kernel runs: one min/max pass
+# over the views per candidate instead of one per stencil tap.
+#
+# The fast rule evaluates the truncation at the tap, so a tap's row depends
+# on y + sy only and its column on x + sx only:
+#   cost_f(y, x) = sum over (sy, sx) of D_f(y + sy, x + sx)
+#   D_f(q) = max_c(max_k - min_k) img_k[c, clamp(trunc(q_y + f*oy_k)),
+#                                         clamp(trunc(q_x + f*ox_k))]
+# on q in [-ry, H + ry) x [-rx, W + rx). The exact rule truncates at the
+# center: trunc(y + f*oy_k) + sy against the hoisted trunc((y + sy) + f*oy_k).
+# The two differ (by 1) only where the coordinate changes sign between
+# center and tap, or where an f32 rounding flips the truncation: a property
+# of (candidate, view, row, sy), and of (candidate, view, column, sx). A
+# row or column where no view and no stencil offset differs is "clean"; a
+# pixel whose row and column are both clean for a candidate takes its cost
+# from D_f, every other (candidate, pixel) pair from the nine-tap sum.
+
+#: clean_flags holds at most this many f32 elements in one temporary.
+_FLAG_ELEMENTS = 1 << 21
+
+
+def cheby_map(
+    selected: torch.Tensor,  # [K, C, H, W] uint8
+    sel_offsets: torch.Tensor,  # [K, 2] float32 (x, y)
+    f: torch.Tensor,  # 0-d float32, the candidate
+    radius: tuple[int, int],  # (rx, ry)
+) -> torch.Tensor:
+    """D_f on the extended domain -> [H + 2*ry, W + 2*rx] uint8; element
+    [qy + ry, qx + rx] is the Chebyshev spread at pixel (qy, qx)."""
     k, c, h, w = selected.shape
     dev = selected.device
     rx, ry = int(radius[0]), int(radius[1])
-    ys = torch.arange(h, device=dev, dtype=torch.float32)
-    xs = torch.arange(w, device=dev, dtype=torch.float32)
+    f = torch.as_tensor(f, dtype=torch.float32, device=dev)
+    offsets = sel_offsets.to(device=dev, dtype=torch.float32)
+
+    def coords(lo: int, n: int, r: int, shift: torch.Tensor) -> torch.Tensor:
+        q = torch.arange(lo - r, lo + n + r, device=dev, dtype=torch.float32)
+        t = torch.trunc(q[None, :] + shift[:, None])
+        return t.clamp_(0, n - 1).to(torch.int64)
+
+    rows = coords(0, h, ry, f * offsets[:, 1])[:, None, :, None]
+    cols = coords(0, w, rx, f * offsets[:, 0])[:, None, None, :]
     ki = torch.arange(k, device=dev)[:, None, None, None]
     ci = torch.arange(c, device=dev)[None, :, None, None]
+    mn, mx = torch.aminmax(selected[ki, ci, rows, cols], dim=0)
+    return (mx.to(torch.int32) - mn.to(torch.int32)).amax(dim=0).to(torch.uint8)
+
+
+def hoisted_cost(d: torch.Tensor, h: int, w: int, radius: tuple[int, int]) -> torch.Tensor:
+    """[H, W] int32: the nine slices of one candidate's `cheby_map`, summed."""
+    rx, ry = int(radius[0]), int(radius[1])
+    d = d.to(torch.int32)
+    cost = torch.zeros((h, w), dtype=torch.int32, device=d.device)
+    for y0 in (0, ry, 2 * ry):
+        for x0 in (0, rx, 2 * rx):
+            cost += d[y0:y0 + h, x0:x0 + w]
+    return cost
+
+
+def _clean(n: int, r: int, shift: torch.Tensor) -> torch.Tensor:
+    """[S, n] bool: position q is clean for candidate i when
+    trunc(f32(q) + shift[i, k]) + s == trunc(f32(q + s) + shift[i, k]) for
+    every view k and s in (-r, r) (s = 0 holds trivially)."""
+    steps, k = shift.shape
+    dev = shift.device
+    clean = torch.ones((steps, n), dtype=torch.bool, device=dev)
+    if r == 0:
+        return clean
+    q = torch.arange(n, device=dev, dtype=torch.float32)
+    chunk = max(1, _FLAG_ELEMENTS // max(1, k * n))
+    for i in range(0, steps, chunk):
+        sh = shift[i:i + chunk, :, None]  # [chunk, K, 1]
+        center = torch.trunc(q + sh)
+        for s in (-r, r):
+            tap = torch.trunc((q + s) + sh)
+            clean[i:i + chunk] &= (center + s == tap).all(dim=1)
+    return clean
+
+
+def clean_flags(
+    sel_offsets: torch.Tensor,  # [K, 2] float32 (x, y)
+    tables: FocusTables,
+    radius: tuple[int, int],  # (rx, ry)
+    h: int,
+    w: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (row_clean [S, H], col_clean [S, W]) bool: where the exact tap
+    rule reads what the hoisted one reads, for every view and stencil
+    offset. Eager ops, each rounded on its own, as the coordinates are."""
+    dev = sel_offsets.device
+    candidates = tables.candidates.to(device=dev, dtype=torch.float32)
+    offsets = sel_offsets.to(dtype=torch.float32)
+    shift_y = candidates[:, None] * offsets[None, :, 1]  # [S, K], rounded f32
+    shift_x = candidates[:, None] * offsets[None, :, 0]
+    return (_clean(h, int(radius[1]), shift_y), _clean(w, int(radius[0]), shift_x))
+
+
+def slow_share(row_clean: torch.Tensor, col_clean: torch.Tensor) -> float:
+    """The share of (candidate, pixel) pairs whose row or column is dirty:
+    those take the nine-tap sum under the exact rule."""
+    clean = row_clean.float().mean(dim=1) * col_clean.float().mean(dim=1)  # [S]
+    return 1.0 - float(clean.mean())
+
+
+def estimate_hoisted(
+    selected: torch.Tensor,  # [K, C, H, W] uint8
+    sel_offsets: torch.Tensor,  # [K, 2] float32 (x, y)
+    tables: FocusTables,
+    radius: tuple[int, int],
+    exact_taps: bool = True,
+) -> torch.Tensor:
+    """``estimate_focus_map`` by the hoisted formulation -> [H, W] uint8,
+    bit-equal to it for both tap rules: the plain statement of what the
+    estimate kernel computes."""
+    h, w = selected.shape[2:]
+    dev = selected.device
     candidates = tables.candidates.to(device=dev, dtype=torch.float32)
     offsets = sel_offsets.to(device=dev, dtype=torch.float32)
-    best_cost = torch.full((h, w), torch.iinfo(torch.int32).max,
-                           dtype=torch.int32, device=dev)
-    best_idx = torch.zeros((h, w), dtype=torch.int64, device=dev)
-    for i in range(candidates.shape[0]):
-        f = candidates[i]
-        fy, fx = f * offsets[:, 1], f * offsets[:, 0]  # [K], rounded f32
-        cost = torch.zeros((h, w), dtype=torch.int32, device=dev)
-        for sy in (-ry, 0, ry):
-            rows = _taps(ys, fy, sy, exact_taps)[:, None, :, None]
-            for sx in (-rx, 0, rx):
-                cols = _taps(xs, fx, sx, exact_taps)[:, None, None, :]
-                mn, mx = torch.aminmax(selected[ki, ci, rows, cols], dim=0)
-                cost += (mx.to(torch.int32) - mn.to(torch.int32)).amax(dim=0)
-        better = cost < best_cost  # strict: the first minimum wins
-        if present is not None:
-            better &= present[i]
-        best_cost = torch.where(better, cost, best_cost)
-        best_idx.masked_fill_(better, i)
-    return tables.candidate_bytes.to(dev)[best_idx]
+    if exact_taps:
+        row_clean, col_clean = clean_flags(offsets, tables, radius, h, w)
+
+    def costs():
+        for i, f in enumerate(candidates):
+            cost = hoisted_cost(cheby_map(selected, offsets, f, radius), h, w, radius)
+            if exact_taps:
+                clean = row_clean[i][:, None] & col_clean[i][None, :]
+                if not bool(clean.all()):
+                    cost = torch.where(
+                        clean, cost, candidate_cost(selected, offsets, f, radius, True))
+            yield cost
+
+    return _argmin_bytes(costs(), tables, (h, w), dev)
 
 
 def presence_from_coarse(coarse: torch.Tensor, plan: Pyramid, steps: int) -> torch.Tensor:

@@ -122,7 +122,8 @@ class StreamingRenderer:
         frame = g * 7 * n + 2 * cfg.view_count * 3 * n
         resident = (self.prefetch + 1) * frame
         if cfg.uses_focus_map:
-            resident += len(self._params.focus_ids) * 7 * n + 48 * n
+            resident += capacity.estimate_bytes(len(self._params.focus_ids), 3,
+                                                height, width)
         elif self.method == "STD":
             resident += blend_torch.temp_bytes(g, cfg.view_count, 3, height, width)
         capacity.check_capacity(

@@ -101,6 +101,14 @@ def test_group_by_center():
     assert _group_by_center(c[:0], 0.0) == []
 
 
-def test_empty_batch(small_lf):
-    port, _ = _both(small_lf, "TEN")
-    assert port.interpolate_batch([], progress=False) == []
+@pytest.mark.parametrize("kw", [{}, dict(focus=0.1, focus_range=0.2)],
+                         ids=["fixed", "allfocus"])
+def test_empty_batch(small_lf, kw):
+    """No trajectories, no results: the port returns [] by intent (its
+    docstring says so) and touches no device. The JAX package raises from
+    np.stack instead; that is the reference's accident, recorded here, not a
+    behaviour the port copies."""
+    port, jax = _both(small_lf, "TEN")
+    assert port.interpolate_batch([], progress=False, **kw) == []
+    with pytest.raises(ValueError, match="need at least one array"):
+        jax.interpolate_batch([], progress=False, **kw)

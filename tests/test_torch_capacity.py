@@ -22,6 +22,7 @@ from lfinterpolator_tpu_torch.core import capacity
 from lfinterpolator_tpu_torch.core.config import RenderConfig
 from lfinterpolator_tpu_torch.io import LightField
 from lfinterpolator_tpu_torch.models import pipeline
+from lfinterpolator_tpu_torch.ops import focus_estimate
 from lfinterpolator_tpu_torch.streaming import StreamingRenderer
 
 torch.set_num_threads(1)
@@ -72,7 +73,15 @@ def test_plan_arithmetic():
     assert capacity.plan_render(G, C, H, W, 64, method="STD", budget=1 << 40
                                 ).bytes_unbatched == 2 * 64 * n + state_temp(64)
     # all in focus: the estimate phase can set the peak
-    est = 32 * (C + 4) * H * W + 48 * H * W
+    # ... with the estimate kernels' scratch: the maps of a chunk of
+    # candidates and the running best
+    est = 32 * (C + 4) * H * W + 48 * H * W + focus_estimate.SCRATCH_BYTES_PER_PIXEL * H * W
+    assert focus_estimate.SCRATCH_BYTES_PER_PIXEL == 44
+    assert capacity.estimate_bytes(32, C, H, W) == est and capacity.estimate_bytes(0, C, H, W) == 0
+    # one chunk holds all 32 headline candidates, and never less than one
+    assert focus_estimate.map_chunk(1080, 1920, (20, 10), 32) == 32
+    assert focus_estimate.map_chunk(1080, 1920, (20, 10), 256) == 38
+    assert focus_estimate.map_chunk(4, 4, (30, 30), 8) == 1
     assert capacity.plan_render(G, C, H, W, 1, method="TEN", focus_views=32,
                                 budget=1 << 40).bytes_unbatched == est
 

@@ -1,7 +1,7 @@
 """Tests of the port that need a CUDA device: the hand-written kernels
 (shift_blend and its quilt instantiation, focus_estimate with both tap
-rules and the presence-predicated refine pass, allfocus_blend, the quilt
-tile copy) against their plain PyTorch versions and the NumPy oracle,
+rules and the presence-predicated refine pass, its map pass, nine-tap loop
+and RGBx pack alone, allfocus_blend, the quilt tile copy) against their plain PyTorch versions and the NumPy oracle,
 through the wrappers, the Interpolator (also batched trajectories and
 forced view batches) and the StreamingRenderer. Tolerance: maps (argmin
 bytes) and the tile copy (moved bytes) are bit-equal to their plain
@@ -228,8 +228,12 @@ def test_interpolator_ten_equals_std_on_cuda(cuda_device):
     assert len(ten.run_times_s) == 2 and ten.avg_ms > 0
 
 
-# (cols, rows, H, W, K, steps, focus, range, radius): odd sizes, negative
-# focus, taps far past the border, K = 1, steps = 2, and K at the maximum
+# (cols, rows, H, W, K, steps, focus, range, radius): odd sizes that are no
+# multiples of the kernels' tiles, negative focus, taps far past the border,
+# K = 1, steps = 2, K at the maximum; a focus at which every row and column
+# is dirty for every candidate (the nine-tap loop alone computes the map), a
+# frame narrower and shorter than the radius (two candidates' maps a chunk),
+# and the largest number of candidates (in chunks of 11)
 ESTIMATES = [
     (4, 4, 37, 53, 5, 6, 0.1, 0.4, (4, 2)),
     (4, 4, 40, 64, 8, 8, -0.4, 0.6, (4, 2)),
@@ -238,6 +242,9 @@ ESTIMATES = [
     (4, 4, 30, 44, 4, 2, -0.1, 0.6, (3, 1)),
     (8, 8, 33, 47, 32, 32, 0.1, 0.3, (2, 2)),
     (16, 16, 6, 10, 256, 3, 0.2, 0.5, (2, 2)),
+    (8, 8, 12, 20, 64, 4, 1.0, 0.5, (6, 5)),
+    (2, 2, 9, 7, 4, 4, 0.2, 0.5, (10, 12)),
+    (2, 2, 17, 45, 2, 256, 0.0, 2.0, (30, 4)),
 ]
 
 
@@ -283,6 +290,47 @@ def test_focus_estimate_matches_plain_version_and_oracle(case, exact, cuda_devic
             reference.focus_map_estimate(images, offsets, ids, focus, frange,
                                          radius, steps=steps),
         )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case", ESTIMATES + [(4, 4, 20, 30, 4, 5, 0.1, 0.3, (0, 0))],
+    ids=lambda c: f"{c[0]}x{c[1]}_{c[2]}x{c[3]}_k{c[4]}_s{c[5]}_r{c[8][0]}"
+)
+def test_estimate_passes_and_the_nine_tap_loop_alone(case, cuda_device):
+    """The map pass equals focus_torch.cheby_map for every candidate; the
+    exact rule with every flag cleared (the nine-tap loop alone), with only
+    the rows or only the columns cleared, and with the real flags give equal
+    bytes; the flags the wrapper computes on the card are the CPU's."""
+    cols, rows, h, w, k, steps, focus, frange, radius = case
+    images, offsets, ids = _estimate_case(*case)
+    selected = _t(images[ids][..., :3].transpose(0, 3, 1, 2), cuda_device)
+    tables = _tables(focus, frange, steps, cuda_device)
+    args = (selected, _t(offsets[ids], cuda_device), tables, radius)
+    maps = focus_estimate.cheby_maps(*args)
+    torch.cuda.synchronize()
+    assert tuple(maps.shape) == (steps, h + 2 * radius[1], w + 2 * radius[0])
+    for i in {0, steps // 2, steps - 1}:
+        assert torch.equal(maps[i], focus_torch.cheby_map(
+            selected, args[1], tables.candidates[i], radius))
+    flags = focus_torch.clean_flags(args[1], tables, radius, h, w)
+    on_cpu = focus_torch.clean_flags(
+        torch.from_numpy(offsets[ids]),
+        FocusTables(*(torch.from_numpy(t) for t in focus_tables(focus, frange, steps))),
+        radius, h, w)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(flags, on_cpu))
+    if case[:2] == (8, 8) and radius == (6, 5):
+        assert focus_torch.slow_share(*flags) == 1.0  # the all-dirty case is one
+    if radius == (0, 0):
+        assert focus_torch.slow_share(*flags) == 0.0
+    want = focus_estimate.focus_estimate(*args)
+    before = dict(focus_estimate.launches)
+    none = tuple(torch.zeros_like(f) for f in flags)
+    for forced in (none, (none[0], flags[1]), (flags[0], none[1]), flags):
+        assert torch.equal(focus_estimate.focus_estimate_flagged(*args, forced), want)
+    assert focus_estimate.launches == {**before, "exact": before["exact"] + 4}
+    with pytest.raises(ValueError, match="flags must be bool"):
+        focus_estimate.focus_estimate_flagged(*args, (flags[0].cpu(), flags[1]))
 
 
 # (cols, rows, H, W, V, focus, range): odd sizes, a ragged row tile and view
@@ -351,34 +399,39 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
                                       tables.decode)
 
 
+# test id -> the C entry whose launch fails: an estimate is three launches
+# (the RGBx pack, the map pass, the argmin pass), and any of them may
+FAILING = {"focus_estimate_rgbx": "lfi_rgbx_pack",
+           "focus_estimate": "lfi_focus_cheby_map",
+           "focus_estimate_argmin": "lfi_focus_estimate",
+           "allfocus_blend": "lfi_allfocus_blend"}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["focus_estimate", "allfocus_blend"])
+@pytest.mark.parametrize("kernel", sorted(FAILING))
 def test_new_kernels_launch_error_raises(kernel, cuda_device, monkeypatch):
     from lfinterpolator_tpu_torch.ops import _build
 
     lib = _build.load()
 
     class Failing:
-        lfi_cuda_error_string = lib.lfi_cuda_error_string
-        lfi_focus_estimate_max_views = lib.lfi_focus_estimate_max_views
-        lfi_focus_estimate_max_steps = lib.lfi_focus_estimate_max_steps
-        lfi_allfocus_blend_max_grid = lib.lfi_allfocus_blend_max_grid
+        """The library with one entry that returns
+        cudaErrorInvalidConfiguration and launches nothing."""
 
-        @staticmethod
-        def lfi_focus_estimate(*args):
-            return 9  # cudaErrorInvalidConfiguration
+        def __getattr__(self, name):
+            return (lambda *args: 9) if name == FAILING[kernel] else getattr(lib, name)
 
-        lfi_allfocus_blend = lfi_focus_estimate
-
-    monkeypatch.setattr(_build, "load", lambda: Failing)
+    monkeypatch.setattr(_build, "load", lambda: Failing())
     images, offsets, ids = _estimate_case(2, 2, 8, 8, 2, 4, 0.1, 0.3, (2, 2))
     tables = _tables(0.1, 0.3, 4, cuda_device)
     planar = _t(images[..., :3].transpose(0, 3, 1, 2), cuda_device)
     offs = _t(offsets, cuda_device)
-    if kernel == "focus_estimate":
+    if kernel.startswith("focus_estimate"):
         before = dict(focus_estimate.launches)
-        with pytest.raises(RuntimeError, match="CUDA error 9"):
-            focus_estimate.focus_estimate(planar, offs, tables, (2, 2))
+        for exact in (True, False):
+            with pytest.raises(RuntimeError,
+                               match=f"{FAILING[kernel]} launch failed: CUDA error 9"):
+                focus_estimate.focus_estimate(planar, offs, tables, (2, 2), exact)
         assert focus_estimate.launches == before
     else:
         before = allfocus_blend.launches
@@ -387,6 +440,22 @@ def test_new_kernels_launch_error_raises(kernel, cuda_device, monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA error 9"):
             allfocus_blend.allfocus_blend(planar, w, offs, fmap, tables.decode)
         assert allfocus_blend.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 3, 5, 7), (2, 1, 8, 12), (5, 4, 6, 10), (1, 3, 33, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_rgbx_pack_matches_plain_version(shape, cuda_device):
+    """Odd pixel counts (one pixel a thread) and multiples of 4 (four), 1 to
+    4 channels, and a strided view of a larger tensor."""
+    rng = np.random.default_rng(sum(shape))
+    sel = _t(rng.integers(0, 256, shape, dtype=np.uint8), cuda_device)
+    got = focus_estimate.rgbx(sel)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and tuple(got.shape) == (shape[0], *shape[2:])
+    assert torch.equal(got, focus_estimate.rgbx_reference(sel))
+    half = sel[:, :, ::2, ::2]
+    assert torch.equal(focus_estimate.rgbx(half), focus_estimate.rgbx_reference(half))
 
 
 @pytest.mark.cuda
@@ -442,11 +511,17 @@ def _masked_oracle(images, offsets, ids, cands, cand_bytes, radius, present):
 
 
 # (cols, rows, H, W, K, steps, radius, tb, wco, sc): presence grains of the
-# JAX package's shapes (tb a multiple of 8, wco of 128) and smaller ones
+# JAX package's shapes (tb a multiple of 8, wco of 128) and smaller ones;
+# then a radius at which 81% of the pairs are dirty, a frame narrower than
+# the radius, K = 1, and K = 256 with 256 candidates in chunks
 PRESENCE = [
     (4, 4, 40, 300, 8, 8, (4, 2), 16, 128, 4),
     (4, 4, 37, 53, 5, 6, (4, 2), 8, 32, 2),
     (8, 8, 48, 96, 32, 32, (2, 2), 24, 64, 4),
+    (4, 4, 14, 70, 16, 8, (8, 6), 8, 32, 4),
+    (2, 2, 9, 7, 4, 4, (10, 12), 8, 32, 1),
+    (3, 5, 21, 33, 1, 4, (2, 2), 8, 32, 2),
+    (16, 16, 6, 37, 256, 256, (30, 2), 8, 32, 8),
 ]
 
 
@@ -483,6 +558,11 @@ def test_presence_estimate_matches_plain_version_and_oracle(case, cuda_device):
     full = torch.full_like(_t(pres, cuda_device), 2**sc - 1)
     assert torch.equal(focus_estimate.focus_estimate(*args, True, full, plan),
                        focus_estimate.focus_estimate(*args))
+    # the nine-tap loop alone under the same presence words
+    dirty = (torch.zeros((steps, h), dtype=torch.bool, device=cuda_device),
+             torch.zeros((steps, w), dtype=torch.bool, device=cuda_device))
+    assert torch.equal(focus_estimate.focus_estimate_flagged(
+        *args, dirty, _t(pres, cuda_device), plan), plain)
 
 
 @pytest.mark.cuda

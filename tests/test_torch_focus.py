@@ -53,12 +53,16 @@ def _case(name, seed=0):
     return images, offsets, ids, steps, focus, frange, radius
 
 
-def _port(images, offsets, ids, steps, focus, frange, radius, exact):
+def _port_operands(images, offsets, ids, steps, focus, frange):
+    """-> (selected [K, 3, H, W], sel_offsets [K, 2], tables) on the CPU."""
     selected = np.ascontiguousarray(images[ids][..., :3].transpose(0, 3, 1, 2))
     tables = FocusTables(*(torch.from_numpy(t) for t in focus_tables(focus, frange, steps)))
+    return torch.from_numpy(selected), torch.from_numpy(offsets[ids]), tables
+
+
+def _port(images, offsets, ids, steps, focus, frange, radius, exact):
     return focus_torch.estimate_focus_map(
-        torch.from_numpy(selected), torch.from_numpy(offsets[ids]), tables,
-        radius, exact,
+        *_port_operands(images, offsets, ids, steps, focus, frange), radius, exact,
     ).numpy()
 
 
@@ -220,3 +224,35 @@ def test_host_tables_match_the_oracle_expressions(steps):
             np.testing.assert_array_equal(t.candidate_bytes, levels[i])
             checked += 1
     assert checked > 5_000
+
+
+def test_half_integer_map_byte_follows_the_oracle_not_jax():
+    """A (focus, range, steps) triple whose candidate byte is a half-integer:
+    0.2, 0.5, 7 puts candidate 3 at (0.45 - 0.2) / 0.5 * 255 = 127.5 in exact
+    arithmetic. The oracle's f32 expression gives 127 and so does the port
+    (host tables, bit for bit the oracle's expression); the JAX package on
+    XLA:CPU gives 128. That is the reference package's own deviation from
+    its oracle, recorded here, not a tolerance of the port: the maps differ
+    in exactly that byte and nowhere else. Port-against-JAX map tests
+    (CASES above and in the other test files) stay off triples whose byte
+    (candidate - focus) / range * 255 is a half-integer."""
+    cols = rows = 3
+    h, w, k, steps, focus, frange, radius = 40, 56, 5, 7, 0.2, 0.5, (2, 2)
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (cols * rows, h, w, 4), dtype=np.uint8)
+    se = geometry.parse_trajectory("0.1,0.8,0.9,0.2", (cols, rows))
+    offsets = geometry.compute_offsets(cols, rows, w, h, 1.0, geometry.trajectory_center(se))
+    ids = geometry.select_focus_views(se, cols, rows, k)
+    args = (images, offsets, ids, steps, focus, frange, radius)
+    assert focus_tables(focus, frange, steps).candidate_bytes[3] == 127
+    for exact in (True, False):
+        port, jax_map = _port(*args, exact), _jax_xla(*args, exact)
+        if exact:
+            np.testing.assert_array_equal(port, reference.focus_map_estimate(
+                images, offsets, ids, focus, frange, radius, steps=steps))
+        differ = port != jax_map
+        assert differ.any()
+        assert set(zip(port[differ].tolist(), jax_map[differ].tolist())) == {(127, 128)}
+        # the same candidate won on both sides: only its byte differs
+        np.testing.assert_array_equal(differ, port == 127)
+        assert not (jax_map == 127).any()
