@@ -4,7 +4,8 @@
 
 Drives the port's fixed-focus, all-in-focus (exact and coarse-to-fine),
 quilt, batched, view-batched and streamed renders (lfinterpolator_tpu_torch)
-at the headline size -- an
+and its scripts (scripts/torch_*.py: the quality gate, the 8K render, the
+map-refresh harness, the video renderer) at the headline size -- an
 8x8 grid of 1080x1920 images, 64 views; all in focus with K = 32 focus
 views, 32 candidates, stencil radius (20, 10); quilts of 5x9 tiles --
 through the kernel wrappers, the Interpolator API and the CLI. Phases, in
@@ -27,9 +28,8 @@ order; any failure raises and the script exits non-zero:
   5. Interpolator end to end on a seeded 8x8/1080p light field: TEN (the
      kernel) at most 1 LSB from STD (plain ops), two views of each under
      the near-tie rule against the NumPy sums, kernel launches counted;
-  6. the fixed-focus CLI in a subprocess on that grid at a quarter of the
-     resolution, written as PNGs: 64 PNGs that decode equal to the API's
-     render of the same grid;
+  6. (the fixed-focus CLI at a quarter of the resolution: phase 18's
+     --quilt run, which writes the same 64 PNGs and the quilt);
   7. focus_estimate, both tap rules, against its plain version at full
      size (torch.equal): on a seeded random stack at focus 0.1, range 0.3,
      both timed, with the share of (candidate, pixel) pairs on the exact
@@ -65,7 +65,8 @@ order; any failure raises and the script exits non-zero:
      launches counted: the fused quilt equals the montage of the TEN
      views and is at most 1 LSB from the two-stage quilt;
  18. the CLI with --quilt-only and --quilt at a quarter of the resolution,
-     and with -r 0.3 --focus-pyramid at half: PNGs equal to the API's;
+     and with -r 0.3 --focus-pyramid at 960x270 (half the columns, a
+     quarter of the rows): PNGs equal to the API's;
  19. the download of one 64-view frame: pageable, a kept pinned buffer
      plus a copy out of it, the port's Downloader (pinned memory per
      download from the caching host allocator, utils/transfer.py), and the
@@ -90,9 +91,25 @@ order; any failure raises and the script exits non-zero:
  25. the library yardsticks (library_ms): the blends' contraction alone as
      one torch.matmul (fp16; f32 with TF32 off), the tile copy as one
      permute().contiguous();
- 26. no module of jax or of the JAX package is loaded;
- 27. the kernels line (each kernel's time, plain time, bound and library
-     time), then the last line: {"ok": true, "device": {...}}.
+ 26. the quality gate (scripts/torch_quality_gate.py) on the card, three
+     runs in subprocesses, started here and read after phase 28 (the NumPy
+     oracle's estimate on the host is most of each): the plane and the
+     occlusion scene at the gate's size (6x6 at 192x256) and the plane at
+     192x512, where the pyramid row runs; every gated row >= 45 dB, the
+     maps equal to the oracle's, the dB of every row printed;
+ 27. scripts/torch_map_refresh_quality.py at 1080x1920, 4x4, 6 frames,
+     refresh 4, at 2 and at 30 px/frame: strict JSON;
+ 28. scripts/torch_render_video.py on a seeded 4x4 tree of 3 frames at
+     270x480: PNGs equal to the stream's views; --resume skips all 3;
+ 29. the 8K all-focus render (scripts/torch_bench_8k.py, TEN): an 8x8 grid
+     of 4320x7680 images, 64 views, K = 32, under the card's real budget
+     (the plan, its bytes beside max_memory_allocated, upload, estimate,
+     blend, download, first and steady call) and its band check, alone on
+     the card and the host;
+ 30. no module of jax or of the JAX package is loaded;
+ 31. the kernels line (each kernel's time, plain time, bound and library
+     time; the launches of phases 26-29 beside the main path's), then the
+     last line: {"ok": true, "device": {...}}.
 
 Exits 1 at once when no CUDA device is present. Needs one GPU, no network.
 Imports only the port (lfinterpolator_tpu_torch), never jax nor the JAX
@@ -117,8 +134,12 @@ VIEWS = 64
 SEED = 0
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print `msg` with the seconds since the script started."""
+    print(f"{msg} @{time.perf_counter() - T0:.1f}s", flush=True)
 
 
 def phase1_environment(torch) -> str:
@@ -412,19 +433,6 @@ def run_cli(np, tag, images, runs) -> None:
                 raise AssertionError(f"CLI file {name} != the API render")
         log(f"[{tag}] {len(names)} PNGs decode equal to the API render")
     shutil.rmtree(work, ignore_errors=True)
-
-
-def phase6_cli(torch, np, lf) -> None:
-    """The fixed-focus CLI on phase 5's grid at a quarter of the resolution
-    (the full-size CLI run is phase 11's, all in focus)."""
-    from lfinterpolator_tpu_torch.api import Interpolator
-    from lfinterpolator_tpu_torch.io import LightField
-
-    small = LightField(np.ascontiguousarray(lf.images[:, ::4, ::4]), COLS, ROWS)
-    ten = Interpolator(small, device="cuda", progress=False).interpolate(
-        TRAJECTORY, focus=0.1, method="TEN", progress=False)
-    torch.cuda.empty_cache()
-    run_cli(np, 6, small.images, [(["-m", "TEN", "-f", "0.1"], view_files(np, ten.views))])
 
 
 def allfocus_setup(focus, focus_range, cols, rows, h, w, exact=True,
@@ -982,8 +990,9 @@ def phase17_render_quilt(torch, np, lf, smi) -> dict:
 
 def phase18_cli(torch, np, lf) -> None:
     """The quilt CLI (--quilt-only, --quilt) at a quarter of the resolution
-    and the pyramid CLI (-r 0.3 --focus-pyramid) at half (the pyramid needs
-    W >= 512); their PNGs decode equal to the API's output."""
+    and the pyramid CLI (-r 0.3 --focus-pyramid) at 960x270 (the pyramid
+    needs W >= 512); their PNGs decode equal to the API's output. The --quilt run
+    is also the fixed-focus CLI's: its 64 views beside the quilt."""
     from lfinterpolator_tpu_torch import RenderConfig, state
     from lfinterpolator_tpu_torch.api import Interpolator
     from lfinterpolator_tpu_torch.io import LightField
@@ -997,18 +1006,18 @@ def phase18_cli(torch, np, lf) -> None:
         (["-m", "TEN", "-f", "0.1", "--quilt"],
          {**view_files(np, ten.views), "quilt.png": q.quilt}),
     ])
-    half = LightField(np.ascontiguousarray(lf.images[:, ::2, ::2]), COLS, ROWS)
+    wide = LightField(np.ascontiguousarray(lf.images[:, ::4, ::2]), COLS, ROWS)
     cfg = RenderConfig(focus_pyramid=True)
-    p = state.allfocus_params(TRAJECTORY, cols=COLS, rows=ROWS, height=H // 2,
+    p = state.allfocus_params(TRAJECTORY, cols=COLS, rows=ROWS, height=H // 4,
                               width=W // 2, config=RenderConfig(
                                   focus=0.1, focus_range=0.3, focus_pyramid=True))
     if p.pyramid is None:
-        raise AssertionError("no pyramid at half resolution")
-    af = Interpolator(half, device="cuda", progress=False, config=cfg).interpolate(
+        raise AssertionError(f"no pyramid at {W // 2}x{H // 4}")
+    af = Interpolator(wide, device="cuda", progress=False, config=cfg).interpolate(
         TRAJECTORY, focus=0.1, focus_range=0.3, method="TEN", progress=False)
     del interp
     torch.cuda.empty_cache()
-    run_cli(np, 18, half.images, [
+    run_cli(np, 18, wide.images, [
         (["-m", "TEN", "-f", "0.1", "-r", "0.3", "--focus-pyramid"],
          view_files(np, af.views, af.maps))])
 
@@ -1112,12 +1121,13 @@ def phase20_stream(torch, np, stack, smi) -> dict:
 
     # The first pass also allocates the pinned input buffers and the
     # pinned outputs the host allocator caches for the next frames.
-    shift_blend.launches = 0  # count only the main path's launches
+    shift_blend.launches = shift_blend.stream_launches = 0  # the main path's
     first = stream_s()
     total = stream_s()
-    launches = shift_blend.launches
-    if launches != 2 * len(frames):
-        raise AssertionError(f"{launches} shift_blend launches for 2 x {len(frames)} frames")
+    launches = shift_blend.stream_launches
+    if launches != 2 * len(frames) or shift_blend.launches:
+        raise AssertionError(f"{launches} streamed and {shift_blend.launches} other "
+                             f"shift_blend launches for 2 x {len(frames)} frames")
     outs = list(sr.render_stream(frames))  # again, kept for the check
     max_err = differ = 0
     for t, (frame, out) in enumerate(zip(frames, outs)):
@@ -1377,6 +1387,200 @@ def phase25_library(torch, np, stack, smi) -> dict:
             "copy": copy}
 
 
+SCRIPTS = os.path.join(ROOT, "scripts")
+
+
+def script(name: str):
+    """Import scripts/<name>.py (the port's scripts import only the port)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(SCRIPTS, f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def launched(name: str, counts: dict, needed) -> dict:
+    """Raise unless every kernel of `needed` launched at least once in
+    `counts` (the launches of one path); -> the nonzero counts."""
+    missing = [k for k in needed if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"{name}: kernels {missing} were launched no time ({counts})")
+    return {k: v for k, v in counts.items() if v}
+
+
+def phase26_gate_start() -> tuple:
+    """Start the quality gate's three runs on the card, each a subprocess."""
+    runs = {"plane": ["--scene", "plane"], "occlusion": ["--scene", "occlusion"],
+            "pyramid": ["--scene", "plane", "--size", "192x512"]}
+    work = os.path.join(ROOT, "build", "smoke_gate")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    procs = {}
+    for name, args in runs.items():  # output to files: nothing waits on a pipe
+        with open(os.path.join(work, f"{name}.out"), "w") as out, \
+                open(os.path.join(work, f"{name}.err"), "w") as err:
+            procs[name] = subprocess.Popen(
+                [sys.executable, os.path.join(SCRIPTS, "torch_quality_gate.py"),
+                 "--device", "cuda", *args], cwd=ROOT, stdout=out, stderr=err)
+    log(f"[26] the gate's {len(runs)} runs started")
+    return time.perf_counter(), work, procs
+
+
+def phase26_gate(started, smi) -> dict:
+    """The quality gate's three runs, read: every gated row >= 45 dB, the
+    maps equal to the oracle's, the kernels of the path launched."""
+    t0, work, procs = started
+    out, launches = {}, {}
+    for name, proc in procs.items():
+        proc.wait(timeout=900)
+        with open(os.path.join(work, f"{name}.out")) as f_out, \
+                open(os.path.join(work, f"{name}.err")) as f_err:
+            stdout, stderr = f_out.read(), f_err.read()
+        if proc.returncode != 0 or not stdout.strip():
+            raise AssertionError(f"the gate ({name}) exit {proc.returncode}: "
+                                 f"{stdout[-2000:]} {stderr[-4000:]}")
+        payload = json.loads(stdout.strip().splitlines()[-1])
+        low = {k: v for k, v in payload["psnr_db"].items()
+               if k in payload["gated"] and v != "inf" and v < payload["threshold_db"]}
+        if not payload["pass"] or low or not all(payload["maps_equal_oracle"].values()):
+            raise AssertionError(f"the gate ({name}) failed: {payload}")
+        if (name == "pyramid") != ("pyramid/TEN" in payload["psnr_db"]):
+            raise AssertionError(f"the gate ({name}): pyramid row {payload['psnr_db']}")
+        needed = ["shift_blend", "shift_blend (stream)", "allfocus_blend",
+                  "focus_estimate_exact", "focus_estimate_fast", "quilt_blend"]
+        launched(f"the gate ({name})", payload["launches"],
+                 needed + ["focus_estimate_pyramid"] * (name == "pyramid"))
+        for k, v in payload["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        out[name] = {k: payload[k] for k in ("psnr_db", "size", "grid")}
+        if "pyramid_map_bytes_differ" in payload:
+            out[name]["pyramid_map_bytes_differ"] = payload["pyramid_map_bytes_differ"]
+        log(f"[26] gate, {name} scene {payload['scene']} at {payload['size']} "
+            f"({payload['grid']}): {json.dumps(payload['psnr_db'])}; maps == oracle; "
+            + (f"pyramid map bytes off the exact sweep "
+               f"{payload['pyramid_map_bytes_differ']:.6f}; "
+               if "pyramid_map_bytes_differ" in payload else "")
+            + f"pass ({smi})")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[26] the gate's 3 runs ended {time.perf_counter() - t0:.1f} s after their start; "
+        f"launches {launches}")
+    return {"runs": out, "launches": launches}
+
+
+def phase29_8k(torch, smi) -> dict:
+    """The 8K all-focus TEN render under the card's real budget, through
+    the Interpolator, with its band check."""
+    from lfinterpolator_tpu_torch.utils import profiling
+
+    bench = script("torch_bench_8k")
+    torch.cuda.empty_cache()
+    profiling.reset_launch_counts()
+    res = bench.run(["TEN"], device="cuda", verify=True,
+                    log=lambda m: log(f"[29] {m}"))
+    torch.cuda.empty_cache()
+    ten = res["methods"]["TEN"]
+    if not ten["verify"]["ok"]:
+        raise AssertionError(f"the 8K band check failed: {ten['verify']}")
+    if set(ten["phases_ms"]) != set(bench.PHASES):
+        raise AssertionError(f"the 8K render timed {ten['phases_ms']}, not {bench.PHASES}")
+    launches = launched("the 8K render", profiling.launch_counts(),
+                        ["focus_estimate_exact", "allfocus_blend"])
+    log(f"[29] 8K TEN: {ten['plan']['arm']}, {ten['plan']['bytes_planned'] / 1e9:.3f} GB "
+        f"planned + {ten['plan']['stack_bytes'] / 1e9:.3f} GB stack against "
+        f"max_memory_allocated {ten['max_memory_allocated'] / 1e9:.3f} GB; upload "
+        f"{res['upload_s']:.2f} s; first call {ten['first_call_s']:.3f} s, steady "
+        f"{ten['steady_call_s']:.3f} s; {json.dumps(ten['phases_ms'])} ms; band check "
+        f"rows {ten['verify']['rows']} passed; host peak {res['host_peak_rss_gib']:.1f} GiB; "
+        f"launches {launches} ({smi})")
+    return {"result": res, "launches": launches}
+
+
+def phase27_map_refresh(smi) -> dict:
+    """The map-refresh harness at 1080p: 4x4, 6 frames, refresh 4, the
+    occluders drifting 2 and 30 px a frame (30 px of 1920 is the share of
+    the frame width that 2 px is of the harness's default 128)."""
+    from lfinterpolator_tpu_torch.utils import profiling
+
+    mr = script("torch_map_refresh_quality")
+    out = {}
+    profiling.reset_launch_counts()
+    for speed in (2, 30):
+        args = mr.parse_args(["--size", "1080x1920", "--grid", "4x4", "--frames", "6",
+                              "--refresh", "4", "--speed", str(speed), "--device", "cuda"])
+        t0 = time.perf_counter()
+        text = json.dumps(mr.run(args), allow_nan=False)  # strict: raises on NaN/inf
+        result = json.loads(text)
+        if result["refresh"]["4"]["stale_frames"] != 4:
+            raise AssertionError(f"map refresh at speed {speed}: {text}")
+        out[speed] = result
+        log(f"[27] map refresh 4 at 1080x1920, 4x4, 6 frames, {speed} px/frame in "
+            f"{time.perf_counter() - t0:.1f} s: {text} ({smi})")
+    launches = launched("the map-refresh harness", profiling.launch_counts(),
+                        ["focus_estimate_exact", "allfocus_blend"])
+    log(f"[27] launches {launches}")
+    return {"results": out, "launches": launches}
+
+
+def phase28_render_video(np) -> dict:
+    """The video script on a seeded 4x4 tree of 3 frames at 270x480 (TEN,
+    focus 0.1): its PNGs decode equal to the stream's views of the same
+    frames, and a --resume run skips all 3."""
+    import contextlib
+    import io as pyio
+
+    from lfinterpolator_tpu_torch import RenderConfig, StreamingRenderer
+    from lfinterpolator_tpu_torch import io
+    from lfinterpolator_tpu_torch.utils import profiling
+
+    work = os.path.join(ROOT, "build", "smoke_video")
+    shutil.rmtree(work, ignore_errors=True)
+    cols = rows = 4
+    h, w = 270, 480
+    rng = np.random.default_rng(SEED + 3)
+    frames = [rng.integers(0, 256, (cols * rows, h, w, 4), dtype=np.uint8) for _ in range(3)]
+    for t, frame in enumerate(frames):
+        frame[..., 3] = 255
+        d = os.path.join(work, "in", f"f{t:03d}")
+        os.makedirs(d)
+        for i in range(cols * rows):
+            io.encode_png(os.path.join(d, f"{i // rows}_{i % rows}.png"), frame[i])
+    video = script("torch_render_video")
+    argv = ["-i", os.path.join(work, "in"), "-o", os.path.join(work, "out"), "-t", TRAJECTORY,
+            "-m", "TEN", "-f", "0.1", "--device", "cuda"]
+    profiling.reset_launch_counts()
+    text = pyio.StringIO()
+    with contextlib.redirect_stdout(text):
+        if video.main(argv) != 0:
+            raise AssertionError("the video script failed")
+    stats = json.loads(text.getvalue().strip().splitlines()[-1])
+    launches = launched("the video script", profiling.launch_counts(),
+                        ["shift_blend (stream)"])
+    sr = StreamingRenderer(cols, rows, w, h, TRAJECTORY,
+                           config=RenderConfig(method="TEN", focus=0.1))
+    for t, views in enumerate(sr.render_stream(frames)):
+        d = os.path.join(work, "out", f"frame_{t:05d}")
+        names = sorted(os.listdir(d))
+        if names != [f"{i:02d}.png" for i in range(VIEWS)]:
+            raise AssertionError(f"the video script wrote {names[:3]}... in {d}")
+        for i, name in enumerate(names):
+            if not np.array_equal(io.decode(os.path.join(d, name))[..., :3], views[i]):
+                raise AssertionError(f"{d}/{name} != the stream's view")
+    text = pyio.StringIO()
+    with contextlib.redirect_stdout(text):
+        if video.main(argv + ["--resume"]) != 0:
+            raise AssertionError("the video script's --resume run failed")
+    resumed = json.loads(text.getvalue().strip().splitlines()[-1])
+    if resumed["skipped"] != 3 or resumed["rendered"] != 0:
+        raise AssertionError(f"--resume did not skip every frame: {resumed}")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[28] the video script: 3 frames of {VIEWS} PNGs at {w}x{h} in "
+        f"{stats['total_s']:.2f} s ({stats['fps']:.3f} fps; decode {stats['decode_s']:.2f} s, "
+        f"encode {stats['encode_s']:.2f} s summed over the writer threads); they decode "
+        f"equal to the stream's views; --resume skipped all 3; launches {launches}")
+    return {"stats": stats, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1399,7 +1603,6 @@ def main() -> int:
     lf = seeded_light_field(np)
     ten, std, launches = phase5_api(torch, np, lf, smi)
     del ten, std
-    phase6_cli(torch, np, lf)
     est, state7 = phase7_estimate_vs_plain(torch, np, stack, smi)
     k8 = phase8_allfocus_vs_plain(torch, smi, state7)
     del state7, stack
@@ -1430,11 +1633,22 @@ def main() -> int:
     view_batches = phase24_view_batches(torch, np, lf, smi)
     lib = phase25_library(torch, np, stack, smi)
     del stack
+    torch.cuda.empty_cache()
+    gate = phase26_gate_start()
+    try:
+        slice6 = {"map_refresh": phase27_map_refresh(smi), "video": phase28_render_video(np)}
+        slice6["gate"] = phase26_gate(gate, smi)
+    finally:  # no gate run outlives a failure
+        for proc in gate[2].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    slice6["8k"] = phase29_8k(torch, smi)
     foreign = [m for m in sys.modules if m in ("jax", "lfinterpolator_tpu")
                or m.startswith(("jax.", "jaxlib", "lfinterpolator_tpu."))]
     if foreign:
         raise AssertionError(f"the port imported jax or the JAX package: {foreign[:5]}")
-    log("[26] no module of jax or of the JAX package (lfinterpolator_tpu) is loaded")
+    log("[30] no module of jax or of the JAX package (lfinterpolator_tpu) is loaded")
     g, n, k, s_ = COLS * ROWS, 3 * H * W, 32, 32
     blend_bound = bound(g * n + VIEWS * n + 4 * VIEWS * g + 8 * g, 2 * VIEWS * g * n, "fp16")
     contraction = {"library_ms": lib["blend_fp16"], "library_f32_ms": lib["blend_f32"],
@@ -1500,12 +1714,19 @@ def main() -> int:
          **bound(2 * 45 * n, 0, "fp16"), "library_ms": lib["copy"],
          "library": "tiles.reshape(9, 5, C, H, W).permute(2, 0, 3, 1, 4).contiguous()"},
     ]
-    log(f"[27] download {json.dumps(download)}")
-    log(f"[27] stream {json.dumps(k2)}; all-focus stream fps {json.dumps(af_fps)}")
-    log(f"[27] batch {json.dumps(batch)}")
-    log(f"[27] view batches {json.dumps(view_batches)}")
-    log(f"[27] predicated estimate at full size: {pyr}")
-    log(f"[27] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    # phases 26-29, each path's own count (shift_blend's streamed launches,
+    # K2's counterpart, are counted apart from its other launches)
+    for kernel in kernels:
+        kernel["launches_slice6"] = {
+            path: r["launches"].get(kernel["name"], 0) for path, r in slice6.items()}
+    log(f"[31] download {json.dumps(download)}")
+    log(f"[31] stream {json.dumps(k2)}; all-focus stream fps {json.dumps(af_fps)}")
+    log(f"[31] batch {json.dumps(batch)}")
+    log(f"[31] view batches {json.dumps(view_batches)}")
+    log(f"[31] predicated estimate at full size: {pyr}")
+    log(f"[31] gate {json.dumps(slice6['gate']['runs'])}")
+    log(f"[31] 8K {json.dumps(slice6['8k']['result'])}")
+    log(f"[31] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -41,7 +41,7 @@ from .core.config import RenderConfig
 from .io import LightField, load_light_field, write_quilt, write_views
 from .models import pipeline
 from .ops import blend_torch, quilt, quilt_torch
-from .utils import profiling, transfer
+from .utils import devices, profiling, transfer
 
 
 @dataclasses.dataclass
@@ -154,14 +154,7 @@ class Interpolator:
         progress: bool = True,
         device: str | torch.device = "cuda",
     ):
-        self.device = torch.device(device)
-        if self.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"device must be cpu or cuda, not {self.device}")
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available: the render needs a CUDA device "
-                "(pass device='cpu' for the plain PyTorch path)"
-            )
+        self.device = devices.resolve(device, "the render")
         self.config = config or RenderConfig()
         self.lf = (
             source if isinstance(source, LightField)

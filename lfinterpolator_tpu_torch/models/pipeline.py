@@ -36,12 +36,14 @@ def render_fixed_focus(
     weights: torch.Tensor,  # [V, G] float32
     shifts: torch.Tensor,  # [G, 2] int32 (dx, dy)
     method: str = "STD",
+    streamed: bool = False,
 ) -> torch.Tensor:
-    """Fixed-focus render -> [V, C, H, W] uint8."""
+    """Fixed-focus render -> [V, C, H, W] uint8. `streamed`: a stream's
+    frame (its kernel launch counts as the stream's)."""
     if method == "STD":
         return blend_torch.render_fixed(images, weights, shifts)
     if method in ("TEN", "TEN_WM"):
-        return shift_blend.shift_blend(images, weights, shifts)
+        return shift_blend.shift_blend(images, weights, shifts, streamed=streamed)
     raise ValueError(f"unknown method {method!r}: use 'STD' or 'TEN'/'TEN_WM'")
 
 

@@ -37,8 +37,11 @@ import torch
 from . import blend_torch
 
 #: Kernel launches since import (or since a caller reset it to 0). Counts
-#: only launches of the CUDA kernel, never plain-version calls.
+#: only launches of the CUDA kernel, never plain-version calls; a launch
+#: made for a stream's frame (``streamed=True``, the K2 counterpart) counts
+#: in ``stream_launches`` instead.
 launches = 0
+stream_launches = 0
 
 
 def is_available() -> bool:
@@ -97,10 +100,13 @@ def shift_blend(
     images: torch.Tensor,  # [G, C, H, W] uint8
     weights: torch.Tensor,  # [V, G] float32, fp16-valued
     shifts: torch.Tensor,  # [G, 2] int32 (dx, dy)
+    *,
+    streamed: bool = False,
 ) -> torch.Tensor:
     """Fixed-focus render -> [V, C, H, W] uint8 (kernel on CUDA tensors).
-    The weights must be fp16-valued (see the module's docstring)."""
-    global launches
+    The weights must be fp16-valued (see the module's docstring).
+    `streamed` counts the launch as a stream's (``stream_launches``)."""
+    global launches, stream_launches
     check_operands(images, weights, shifts)
     if images.device.type == "cpu":
         return shift_blend_reference(images, weights, shifts)
@@ -130,5 +136,8 @@ def shift_blend(
             f"lfi_shift_blend launch failed: CUDA error {err} "
             f"({lib.lfi_cuda_error_string(err).decode()})"
         )
-    launches += 1
+    if streamed:
+        stream_launches += 1
+    else:
+        launches += 1
     return out

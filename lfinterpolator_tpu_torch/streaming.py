@@ -44,7 +44,7 @@ from .core.config import RenderConfig
 from .io import writer
 from .models import pipeline
 from .ops import blend_torch
-from .utils import transfer
+from .utils import devices, transfer
 
 
 @dataclasses.dataclass
@@ -83,14 +83,7 @@ class StreamingRenderer:
         prefetch: int = 2,
         device: str | torch.device = "cuda",
     ):
-        self.device = torch.device(device)
-        if self.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"device must be cpu or cuda, not {self.device}")
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available: the stream needs a CUDA device "
-                "(pass device='cpu' for the plain PyTorch path)"
-            )
+        self.device = devices.resolve(device, "the stream")
         self.cfg = config or RenderConfig()
         self.cfg.validate()
         self.cols, self.rows = cols, rows
@@ -142,7 +135,7 @@ class StreamingRenderer:
         [V, 3, H, W], or (views, maps [2, H, W]) all in focus."""
         if not self.cfg.uses_focus_map:
             return pipeline.render_fixed_focus(images, self.weights, self.shifts,
-                                               method=self.method)
+                                               method=self.method, streamed=True)
         cfg, p = self.cfg, self._params
         kwargs = dict(radius=p.radius, filter_radius=p.filter_radius,
                       exact_taps=cfg.exact_focus_taps, pyramid=p.pyramid)

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's framework-free modules,
 held equal to the originals on the same inputs: ``core/geometry.py``,
-``core/config.py``, ``io/{codec,loader,writer}.py`` and the CLI parser.
+``core/config.py``, ``io/{codec,loader,writer}.py``, the CLI parser, the
+oracle ``ops/reference.py`` and ``utils/{metrics,scenes}.py``.
 
 Tolerance: none. Every array, message, file byte and parsed flag is equal.
 """
@@ -18,9 +19,14 @@ from lfinterpolator_tpu.core import geometry as jax_geometry
 from lfinterpolator_tpu.io import codec as jax_codec
 from lfinterpolator_tpu.io import loader as jax_loader
 from lfinterpolator_tpu.io import writer as jax_writer
+from lfinterpolator_tpu.ops import reference as jax_reference
+from lfinterpolator_tpu.utils import metrics as jax_metrics
+from lfinterpolator_tpu.utils import scenes as jax_scenes
 from lfinterpolator_tpu_torch import cli
 from lfinterpolator_tpu_torch.core import config, geometry
 from lfinterpolator_tpu_torch.io import codec, loader, writer
+from lfinterpolator_tpu_torch.ops import reference
+from lfinterpolator_tpu_torch.utils import metrics, scenes
 
 torch.set_num_threads(1)
 
@@ -181,3 +187,99 @@ def test_build_parser_equals_the_jax_one(argv):
     assert got.pop("device") == "cuda"
     assert got == want
     assert vars(cli.build_parser().parse_args(argv + ["--device", "cpu"]))["device"] == "cpu"
+
+
+def _both(got, want):
+    np.testing.assert_array_equal(got, want)
+    assert np.asarray(got).dtype == np.asarray(want).dtype
+
+
+@pytest.fixture(scope="module")
+def oracle_inputs():
+    """A seeded 3x3 grid at 24x32 with the render's weights and offsets."""
+    rng = np.random.default_rng(11)
+    cols = rows = 3
+    h, w = 24, 32
+    images = rng.integers(0, 256, (cols * rows, h, w, 4), dtype=np.uint8)
+    se = geometry.parse_trajectory("0.1,0.2,0.9,0.7", (cols, rows))
+    wm = geometry.quantize_weights_f16(geometry.weight_matrix(se, cols, rows, 3.0, 5))
+    offsets = geometry.compute_offsets(cols, rows, w, h, 1.3, geometry.trajectory_center(se))
+    ids = geometry.select_focus_views(se, cols, rows, 6)
+    fmap = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    return images, wm, offsets, ids, fmap
+
+
+@pytest.mark.parametrize("focus", [0.37, -1.5])
+def test_oracle_blends_equal_the_jax_ones(oracle_inputs, focus):
+    images, wm, offsets, _, fmap = oracle_inputs
+    fo = geometry.focused_offsets(offsets, focus)
+    _both(reference.blend_fixed(images, wm, fo), jax_reference.blend_fixed(images, wm, fo))
+    _both(reference.blend_fixed_fp16acc(images, wm, fo, batch=4),
+          jax_reference.blend_fixed_fp16acc(images, wm, fo, batch=4))
+    _both(reference.focus_values_from_map(fmap, focus, 0.3),
+          jax_reference.focus_values_from_map(fmap, focus, 0.3))
+    _both(reference.blend_allfocus(images, wm, offsets, fmap, focus, 0.3),
+          jax_reference.blend_allfocus(images, wm, offsets, fmap, focus, 0.3))
+
+
+@pytest.mark.parametrize("radius", [(2, 2), (4, 2), (0, 2)], ids=["r2", "r4x2", "r0"])
+def test_oracle_focus_map_equals_the_jax_one(oracle_inputs, radius):
+    images, _, offsets, ids, fmap = oracle_inputs
+    if radius[0]:
+        _both(reference.focus_map_estimate(images, offsets, ids, 0.1, 0.4, radius, steps=9),
+              jax_reference.focus_map_estimate(images, offsets, ids, 0.1, 0.4, radius,
+                                               steps=9))
+    _both(reference.focus_map_filter(fmap, radius),
+          jax_reference.focus_map_filter(fmap, radius))
+
+
+def test_psnr_and_ssim_equal_the_jax_ones():
+    rng = np.random.default_rng(12)
+    a = rng.integers(0, 256, (30, 26, 3), dtype=np.uint8)
+    b = np.clip(a.astype(int) + rng.integers(-9, 10, a.shape), 0, 255).astype(np.uint8)
+    for x, y in ((a, b), (a[..., 0], b[..., 0]), (a, a)):
+        assert metrics.psnr(x, y) == jax_metrics.psnr(x, y)
+        assert metrics.ssim(x, y) == jax_metrics.ssim(x, y)
+        assert metrics.compare_images(x, y) == jax_metrics.compare_images(x, y)
+    assert metrics.psnr(a, a) == float("inf")
+    assert metrics.psnr(a, b, max_value=1.0) == jax_metrics.psnr(a, b, max_value=1.0)
+    for fn in ("psnr", "ssim"):
+        with pytest.raises(ValueError) as got:
+            getattr(metrics, fn)(a, b[:-1])
+        with pytest.raises(ValueError) as want:
+            getattr(jax_metrics, fn)(a, b[:-1])
+        assert str(got.value) == str(want.value)
+
+
+def test_compare_files_and_vmaf_equal_the_jax_ones(tmp_path):
+    rng = np.random.default_rng(13)
+    for name in ("a.png", "b.png"):
+        jax_codec.encode_png(str(tmp_path / name),
+                             rng.integers(0, 256, (20, 18, 4), dtype=np.uint8))
+    pa, pb = str(tmp_path / "a.png"), str(tmp_path / "b.png")
+    assert metrics.vmaf_available() == jax_metrics.vmaf_available()
+    assert metrics.vmaf(pa, pb) == jax_metrics.vmaf(pa, pb)
+    for with_vmaf in (False, True):
+        assert (metrics.compare_files(pa, pb, with_vmaf=with_vmaf)
+                == jax_metrics.compare_files(pa, pb, with_vmaf=with_vmaf))
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [{}, {"occluder_shift": (3.0, -7.6)}, {"n_occluders": (0, 2), "seed": 4},
+     {"plane_foci": (0.1, 0.2), "n_occluders": (2,)}],
+    ids=["default", "occluder_shift", "occluders", "two_planes"],
+)
+def test_occlusion_scene_equals_the_jax_one(kwargs):
+    assert scenes.occlusion_foci(0.1, 0.4, 32) == jax_scenes.occlusion_foci(0.1, 0.4, 32)
+    assert scenes.occlusion_foci() == jax_scenes.occlusion_foci()
+    _both(scenes.make_occlusion_scene(3, 2, 30, 44, **kwargs),
+          jax_scenes.make_occlusion_scene(3, 2, 30, 44, **kwargs))
+
+
+def test_occlusion_scene_errors_equal_the_jax_ones():
+    with pytest.raises(ValueError) as got:
+        scenes.make_occlusion_scene(2, 2, 20, 20, n_occluders=(1,))
+    with pytest.raises(ValueError) as want:
+        jax_scenes.make_occlusion_scene(2, 2, 20, 20, n_occluders=(1,))
+    assert str(got.value) == str(want.value)

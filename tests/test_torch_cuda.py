@@ -699,14 +699,15 @@ def test_stream_on_cuda_equals_plain_and_oracle(focus_range, cuda_device):
     """The CUDA stream (pinned uploads, upload/download streams) yields each
     frame within 1 LSB of the plain pipeline on the CPU (maps equal); fixed
     TEN frames equal a one-pass shift_blend byte for byte, are within 1 LSB
-    of the oracle and launch shift_blend once a frame."""
+    of the oracle and launch shift_blend once a frame, counted as the
+    stream's launches."""
     from lfinterpolator_tpu_torch.core.config import RenderConfig
     from lfinterpolator_tpu_torch.streaming import StreamingRenderer
 
     cfg = RenderConfig(method="TEN", focus=0.3, focus_range=focus_range, view_count=9,
                        focus_map_views=8, focus_steps=8, focus_map_refresh=2)
     frames = [_scene(4, 4, 37, 70, 1, 0.0, seed=s)[0] for s in range(5)]
-    before = shift_blend.launches
+    before = (shift_blend.launches, shift_blend.stream_launches)
     got = list(StreamingRenderer(4, 4, 70, 37, "0,0,1,1", config=cfg, prefetch=2,
                                  device=cuda_device).render_stream(iter(frames)))
     want = list(StreamingRenderer(4, 4, 70, 37, "0,0,1,1", config=cfg,
@@ -717,7 +718,7 @@ def test_stream_on_cuda_equals_plain_and_oracle(focus_range, cuda_device):
             np.testing.assert_array_equal(gm, wm_)
             _one_lsb(gv, wv)
         return
-    assert shift_blend.launches == before + 5
+    assert (shift_blend.launches, shift_blend.stream_launches) == (before[0], before[1] + 5)
     _, wm, fo = _scene(4, 4, 37, 70, 9, 0.3)
     for frame, g, w in zip(frames, got, want):
         one_pass = shift_blend.shift_blend(*to_device_state(frame, wm, fo, cuda_device))

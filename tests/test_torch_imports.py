@@ -31,13 +31,15 @@ def _fake_nvcc(directory, body: str) -> str:
 
 
 def test_package_imports_no_jax_and_builds_nothing(tmp_path):
-    """A walk through every entry point on the CPU: no jax, no module of
-    the JAX package, no nvcc."""
+    """A walk through every entry point and script on the CPU: no jax, no
+    module of the JAX package, no nvcc."""
     marker = tmp_path / "nvcc_ran"
     bindir = tmp_path / "bin"
     bindir.mkdir()
     _fake_nvcc(str(bindir), f"touch {marker}; exit 1")
-    script = textwrap.dedent("""
+    script = textwrap.dedent(f"""
+        ROOT = {ROOT!r}
+    """) + textwrap.dedent("""
         import os
         import sys
         import numpy as np
@@ -50,8 +52,22 @@ def test_package_imports_no_jax_and_builds_nothing(tmp_path):
         from lfinterpolator_tpu_torch.ops import (
             _build, allfocus_blend, blend_torch, estimate_geometry, focus_estimate,
             focus_torch, quilt, quilt_torch, shift_blend)
-        from lfinterpolator_tpu_torch.utils import profiling, progress, transfer
+        from lfinterpolator_tpu_torch.ops import reference
+        from lfinterpolator_tpu_torch.utils import (
+            devices, metrics, profiling, progress, scenes, transfer)
         assert pkg.Interpolator is Interpolator
+        # slice 6: every script of the port imports, and the gate runs
+        import importlib.util
+        scripts = {}
+        for name in ("quality_gate", "bench_8k", "map_refresh_quality", "render_video",
+                     "validate_batching", "views_to_quilt", "image_quality_metrics",
+                     "compare_dirs", "focus_map_compare"):
+            path = os.path.join(ROOT, "scripts", f"torch_{name}.py")
+            spec = importlib.util.spec_from_file_location(name, path)
+            scripts[name] = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(scripts[name])
+        gate = scripts["quality_gate"].run_gate((48, 64), (4, 4), "plane", "cpu")
+        assert gate["pass"], gate
         rng = np.random.default_rng(0)
         lf = LightField(rng.integers(0, 256, (4, 8, 12, 4), dtype=np.uint8), 2, 2)
         interp = Interpolator(lf, device="cpu", progress=False,

@@ -32,3 +32,33 @@ def test_timer_on_cpu_reads_the_host_clock():
         time.sleep(0.003)
     assert t.elapsed_s >= 0.003
     assert profiling.device_name("cpu") == "cpu"
+
+
+def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
+    import json
+
+    with profiling.trace(str(tmp_path / "trace")) as prof:
+        torch.matmul(torch.ones(16, 16), torch.ones(16, 16))
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    assert any("matmul" in e.get("name", "") for e in events)
+    assert any("matmul" in a.key for a in prof.key_averages())
+
+
+def test_launch_counts_keep_streamed_launches_apart():
+    """The kernels line's names; a stream's shift_blend launches (K2's
+    counterpart) have their own count, and a reset zeroes every count."""
+    from lfinterpolator_tpu_torch.ops import shift_blend
+
+    profiling.reset_launch_counts()
+    shift_blend.launches, shift_blend.stream_launches = 2, 3
+    counts = profiling.launch_counts()
+    assert counts["shift_blend"] == 2 and counts["shift_blend (stream)"] == 3
+    assert {"allfocus_blend", "focus_estimate_exact", "focus_estimate_fast",
+            "focus_estimate_pyramid", "quilt_blend", "quilt_copy"} <= set(counts)
+    profiling.reset_launch_counts()
+    assert not any(profiling.launch_counts().values())
+
+
+def test_card_line_on_the_cpu():
+    assert profiling.card_line("cpu") == "cpu"
+
