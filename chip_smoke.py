@@ -106,10 +106,24 @@ order; any failure raises and the script exits non-zero:
      (the plan, its bytes beside max_memory_allocated, upload, estimate,
      blend, download, first and steady call) and its band check, alone on
      the card and the host;
+ 32. (run after phase 29) the multi-GPU path (slice 5) on one card: a
+     (1, 1) mesh over NCCL in this process -- fixed TEN and STD, all in
+     focus TEN and STD, --fast-focus, render_quilt (two-stage) and
+     interpolate_batch of 3 trajectories, each equal to the same call
+     without a mesh; launches counted, the NCCL init, the shard step and
+     the one-device step timed -- then a (2, 2) mesh of four gloo ranks
+     sharing the card (spawned after phase 2's build): each rank makes the
+     seeded light field and renders fixed TEN, all-focus TEN and STD and
+     --fast-focus, each equal (128-bit digests of views and maps) to the
+     one-device render; each rank's launches, shard step (CUDA events),
+     map and views all-gathers (host clock) and max_memory_allocated
+     beside the per-rank byte arithmetic; four ranks time-sharing one
+     card: not a scaling measurement;
  30. no module of jax or of the JAX package is loaded;
  31. the kernels line (each kernel's time, plain time, bound and library
-     time; the launches of phases 26-29 beside the main path's), then the
-     last line: {"ok": true, "device": {...}}.
+     time; the launches of phases 26-29 beside the main path's, and phase
+     32's in `launches_mesh`), then the last line:
+     {"ok": true, "device": {...}}.
 
 Exits 1 at once when no CUDA device is present. Needs one GPU, no network.
 Imports only the port (lfinterpolator_tpu_torch), never jax nor the JAX
@@ -1581,6 +1595,286 @@ def phase28_render_video(np) -> dict:
     return {"stats": stats, "launches": launches}
 
 
+# -- phase 32: multi-GPU rendering (slice 5) ---------------------------------
+
+# (tag, method, focus range, exact taps) of the renders both meshes drive
+MESH_RENDERS = [("fixed TEN", "TEN", 0.0, True), ("all-focus TEN", "TEN", 0.3, True),
+                ("all-focus STD", "STD", 0.3, True), ("fast", "TEN", 0.3, False)]
+MESH_TRAJECTORIES = ["0,0,1,1", "0.2,0.2,0.8,0.8", "0,0.5,1,0.5"]
+MESH_TIMEOUT_S = 300
+
+
+def digest(np, *arrays) -> str:
+    """A 128-bit hash of the arrays' bytes: equal digests stand for
+    torch.equal between processes."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for a in arrays:
+        h.update(memoryview(np.ascontiguousarray(a)).cast("B"))
+    return h.hexdigest()
+
+
+def set_taps(interp, exact: bool) -> None:
+    """The tap rule of `interp`'s later all-focus renders."""
+    import dataclasses
+
+    interp.config = dataclasses.replace(interp.config, exact_focus_taps=exact)
+
+
+def ms3(times) -> str:
+    return "/".join(f"{t:.3f}" for t in times)
+
+
+def mesh_render(interp, method: str, focus_range: float, exact: bool):
+    """One of MESH_RENDERS at focus 0.1."""
+    set_taps(interp, exact)
+    return interp.interpolate(TRAJECTORY, focus=0.1, focus_range=focus_range,
+                              method=method, progress=False)
+
+
+def result_digest(np, res) -> str:
+    return digest(np, res.views, *([] if res.maps is None else [res.maps]))
+
+
+def shard_bytes(nv: int, ns: int) -> dict:
+    """Per-rank bytes of a fixed TEN and an all-focus TEN render at the
+    headline size on an (nv, ns) mesh (parallel.mesh's arithmetic): the
+    shard step's peak ("render") and the gather's, each with the stack."""
+    from lfinterpolator_tpu_torch.core import geometry
+    from lfinterpolator_tpu_torch.parallel import mesh
+
+    radius = geometry.block_radius(W, H)
+    g = COLS * ROWS
+    fixed = mesh.fixed_shard_bytes(nv, ns, g, 3, H, W, VIEWS, method="TEN")
+    af = mesh.allfocus_shard_bytes(nv, ns, g, 32, 3, H, W, VIEWS, radius=radius,
+                                   filter_radius=(radius[0] // 2, radius[1] // 2),
+                                   steps=32)
+    return {"fixed TEN": {"resident": fixed["stack"], "render": fixed["render"],
+                          "gather": fixed["gather"]},
+            "all-focus TEN": {"resident": af["stack"],
+                              "render": max(af["estimate"], af["filter"], af["blend"]),
+                              "gather": af["gather"]}}
+
+
+def mesh_peaks(torch, interp, focus_range: float) -> dict:
+    """max_memory_allocated of a TEN render on `interp`'s mesh, per part:
+    the shard step ("render"), the gather of the views and maps to every
+    rank ("gather"), and their download beside them ("download"); and what
+    was allocated before the step ("resident": the stack and whatever else
+    the process holds)."""
+    set_taps(interp, True)
+    cfg, key = interp._config(0.1, focus_range, "TEN", None, None)
+    step = interp._render_step(TRAJECTORY, cfg, key, False)
+    torch.cuda.synchronize()
+    peaks = {"resident": torch.cuda.memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    out = step()
+    torch.cuda.synchronize()
+    peaks["render"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    full = interp._collect(*out)
+    torch.cuda.synchronize()
+    peaks["gather"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    interp._to_host(*full)
+    peaks["download"] = torch.cuda.max_memory_allocated()
+    return peaks
+
+
+def peaks_line(peaks: dict, arithmetic: dict) -> str:
+    return "; ".join(
+        f"{tag}: " + ", ".join(f"{part} {peaks[tag][part] / 1e9:.3f}"
+                               + (f" (arithmetic {arithmetic[tag][part] / 1e9:.3f})"
+                                  if part in arithmetic[tag] else "")
+                               for part in peaks[tag])
+        for tag in peaks) + " GB"
+
+
+def mesh_timings(torch, interp, m, runs: int = 3) -> dict:
+    """ms of this rank's all-focus TEN shard step (CUDA events; it holds
+    the map's all-gather), of the map's all-gather alone and of the views'
+    all-gather (host clock), each run starting after a barrier."""
+    from lfinterpolator_tpu_torch.parallel import mesh
+
+    set_taps(interp, True)
+    cfg, key = interp._config(0.1, 0.3, "TEN", None, None)
+    step = interp._render_step(TRAJECTORY, cfg, key, False)
+    views_l, maps_l = step()
+    out = {"step_ms": [], "map_gather_ms": [], "views_gather_ms": []}
+    for _ in range(runs):
+        mesh.sync("cuda")
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        out["step_ms"].append(start.elapsed_time(end))
+        for name, fn in (("map_gather_ms", lambda: mesh.gather_rows(m, maps_l[0])),
+                         ("views_gather_ms", lambda: mesh.gather_views_device(m, views_l))):
+            mesh.sync("cuda")
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[name].append(1000 * (time.perf_counter() - t0))
+    return out
+
+
+def mesh_rank(rank: int, work: str, want: dict) -> None:
+    """One of the four gloo ranks of phase 32 (a spawned process; the
+    kernels were built by the parent): the seeded headline light field
+    from the seed, the renders of MESH_RENDERS on the (2, 2) mesh, each
+    one's digest against the parent's one-device render, launches,
+    timings and peak memory to work/rank<rank>.json."""
+    import numpy as np
+    import torch
+
+    from lfinterpolator_tpu_torch.api import Interpolator
+    from lfinterpolator_tpu_torch.parallel import distributed, mesh
+    from lfinterpolator_tpu_torch.utils import profiling
+
+    distributed.initialize("file://" + os.path.join(work, "gloo"), 4, rank,
+                           backend="gloo", timeout_s=120)
+    try:
+        m = mesh.make_mesh()
+        interp = Interpolator(seeded_light_field(np), device="cuda", progress=False,
+                              mesh=m)
+        out = {"rank": rank, "coordinate": list(m.get_coordinate()), "equal": {}}
+        profiling.reset_launch_counts()
+        for tag, method, focus_range, exact in MESH_RENDERS:
+            out["equal"][tag] = result_digest(
+                np, mesh_render(interp, method, focus_range, exact)) == want[tag]
+        out["launches"] = profiling.launch_counts()
+        out["max_memory_allocated"] = {"fixed TEN": mesh_peaks(torch, interp, 0.0),
+                                       "all-focus TEN": mesh_peaks(torch, interp, 0.3)}
+        out.update(mesh_timings(torch, interp, m))
+        out["foreign"] = [k for k in sys.modules if k in ("jax", "lfinterpolator_tpu")
+                          or k.startswith(("jax.", "jaxlib", "lfinterpolator_tpu."))]
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        mesh.sync("cuda")
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def phase32_mesh(torch, np, lf, smi) -> dict:
+    """The multi-GPU path on one card: a (1, 1) mesh over NCCL in this
+    process, then a (2, 2) mesh of four gloo ranks sharing the card, each
+    render equal to the one-device render of the same call."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from lfinterpolator_tpu_torch.api import Interpolator
+    from lfinterpolator_tpu_torch.parallel import distributed, mesh
+    from lfinterpolator_tpu_torch.utils import profiling
+
+    work = tempfile.mkdtemp(prefix="lfi_mesh_")
+    renders = MESH_RENDERS + [("fixed STD", "STD", 0.0, True)]
+    one = Interpolator(lf, device="cuda", progress=False)
+    want = {tag: mesh_render(one, *r) for tag, *r in renders}
+    want_quilt = one.render_quilt(TRAJECTORY, focus=0.1, method="TEN", progress=False)
+    want_batch = one.interpolate_batch(MESH_TRAJECTORIES, focus=0.1, method="TEN",
+                                       progress=False)
+    set_taps(one, True)
+    cfg, key = one._config(0.1, 0.3, "TEN", None, None)
+    one_ms = event_ms(torch, one._render_step(TRAJECTORY, cfg, key, False), runs=5)
+    del one
+    torch.cuda.empty_cache()
+
+    # (1, 1) over NCCL, in this process
+    t0 = time.perf_counter()
+    distributed.initialize("file://" + os.path.join(work, "nccl"), 1, 0, backend="nccl")
+    m = mesh.make_mesh()
+    init_ms = 1000 * (time.perf_counter() - t0)
+    try:
+        meshed = Interpolator(lf, device="cuda", progress=False, mesh=m)
+        profiling.reset_launch_counts()  # the mesh path's launches
+        got = {tag: mesh_render(meshed, *r) for tag, *r in renders}
+        got_quilt = meshed.render_quilt(TRAJECTORY, focus=0.1, method="TEN",
+                                        progress=False)
+        got_batch = meshed.interpolate_batch(MESH_TRAJECTORIES, focus=0.1, method="TEN",
+                                             progress=False)
+        nccl_launches = launched(
+            "the (1, 1) NCCL mesh", profiling.launch_counts(),
+            ["shift_blend", "allfocus_blend", "focus_estimate_exact",
+             "focus_estimate_fast", "quilt_copy"])
+        for tag, _, _, _ in renders:
+            if not (np.array_equal(got[tag].views, want[tag].views)
+                    and (want[tag].maps is None
+                         or np.array_equal(got[tag].maps, want[tag].maps))):
+                raise AssertionError(f"(1, 1) mesh {tag} != the one-device render")
+        if got_quilt.fused or not np.array_equal(got_quilt.quilt, want_quilt.quilt):
+            raise AssertionError("the (1, 1) mesh's two-stage quilt != the fused quilt")
+        for t, a, b in zip(MESH_TRAJECTORIES, got_batch, want_batch):
+            if not np.array_equal(a.views, b.views):
+                raise AssertionError(f"(1, 1) mesh batch result for {t} != one device")
+        mesh_ms = event_ms(torch, meshed._render_step(TRAJECTORY, cfg, key, False), runs=5)
+        nccl_peaks = {"fixed TEN": mesh_peaks(torch, meshed, 0.0),
+                      "all-focus TEN": mesh_peaks(torch, meshed, 0.3)}
+        del meshed
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    nccl_bytes = shard_bytes(1, 1)
+    log(f"[32] (1, 1) mesh over NCCL in this process: init {init_ms:.1f} ms; fixed TEN "
+        f"and STD, all-focus TEN and STD, --fast-focus, render_quilt (two-stage) and "
+        f"interpolate_batch of {len(MESH_TRAJECTORIES)} trajectories each equal to the "
+        f"one-device call (views and maps); launches {nccl_launches}; all-focus TEN step "
+        f"{mesh_ms:.3f} ms against {one_ms:.3f} ms on one device (CUDA events); "
+        f"max_memory_allocated {peaks_line(nccl_peaks, nccl_bytes)} ({smi})")
+
+    # (2, 2) over gloo: four ranks sharing the card
+    digests = {tag: result_digest(np, want[tag]) for tag, *_ in MESH_RENDERS}
+    del want
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(mesh_rank, args=(work, digests), nprocs=4, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1.0):  # raises if a rank failed
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the gloo ranks ran over {MESH_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks = []
+    for r in range(4):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+    for out in ranks:
+        if not all(out["equal"].values()) or out["foreign"]:
+            raise AssertionError(f"gloo rank {out['rank']}: equal {out['equal']}, "
+                                 f"foreign modules {out['foreign'][:5]}")
+        launched(f"gloo rank {out['rank']}", out["launches"],
+                 ["shift_blend", "allfocus_blend", "focus_estimate_exact",
+                  "focus_estimate_fast"])
+    gloo_bytes = shard_bytes(2, 2)
+    for out in ranks:
+        log(f"[32] gloo rank {out['rank']} at {out['coordinate']}: all-focus TEN shard "
+            f"step {ms3(out['step_ms'])} ms (CUDA events), map all-gather "
+            f"{ms3(out['map_gather_ms'])} ms, views all-gather {ms3(out['views_gather_ms'])} "
+            f"ms (host clock); max_memory_allocated "
+            f"{peaks_line(out['max_memory_allocated'], gloo_bytes)}; launches "
+            f"{ {k: v for k, v in out['launches'].items() if v} }")
+    log(f"[32] (2, 2) mesh of four gloo ranks time-sharing one card (not a scaling "
+        f"measurement): fixed TEN, all-focus TEN and STD and --fast-focus equal to the "
+        f"one-device render on every rank (views and maps, by 128-bit digests); gloo took "
+        f"the CUDA tensors of every broadcast and all-gather as they are; "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start; one-device all-focus TEN "
+        f"step {one_ms:.3f} ms ({smi})")
+    return {"nccl": {"init_ms": init_ms, "step_ms": mesh_ms, "one_device_ms": one_ms,
+                     "max_memory_allocated": nccl_peaks, "bytes": nccl_bytes,
+                     "launches": nccl_launches},
+            "gloo": {"ranks": ranks, "bytes": gloo_bytes}}
+
+
 def main() -> int:
     import torch
 
@@ -1644,11 +1938,14 @@ def main() -> int:
                 proc.kill()
                 proc.wait()
     slice6["8k"] = phase29_8k(torch, smi)
+    mesh_run = phase32_mesh(torch, np, lf, smi)
     foreign = [m for m in sys.modules if m in ("jax", "lfinterpolator_tpu")
                or m.startswith(("jax.", "jaxlib", "lfinterpolator_tpu."))]
     if foreign:
         raise AssertionError(f"the port imported jax or the JAX package: {foreign[:5]}")
-    log("[30] no module of jax or of the JAX package (lfinterpolator_tpu) is loaded")
+    log("[30] no module of jax or of the JAX package (lfinterpolator_tpu) is loaded "
+        "(parallel.distributed and parallel.mesh included, after phase 32's NCCL mesh; "
+        "each gloo rank checked its own)")
     g, n, k, s_ = COLS * ROWS, 3 * H * W, 32, 32
     blend_bound = bound(g * n + VIEWS * n + 4 * VIEWS * g + 8 * g, 2 * VIEWS * g * n, "fp16")
     contraction = {"library_ms": lib["blend_fp16"], "library_f32_ms": lib["blend_f32"],
@@ -1719,6 +2016,11 @@ def main() -> int:
     for kernel in kernels:
         kernel["launches_slice6"] = {
             path: r["launches"].get(kernel["name"], 0) for path, r in slice6.items()}
+        # phase 32: the (1, 1) NCCL mesh's launches and each gloo rank's
+        kernel["launches_mesh"] = {
+            "nccl_1x1": mesh_run["nccl"]["launches"].get(kernel["name"], 0),
+            "gloo_2x2_ranks": [r["launches"].get(kernel["name"], 0)
+                               for r in mesh_run["gloo"]["ranks"]]}
     log(f"[31] download {json.dumps(download)}")
     log(f"[31] stream {json.dumps(k2)}; all-focus stream fps {json.dumps(af_fps)}")
     log(f"[31] batch {json.dumps(batch)}")
@@ -1726,6 +2028,7 @@ def main() -> int:
     log(f"[31] predicated estimate at full size: {pyr}")
     log(f"[31] gate {json.dumps(slice6['gate']['runs'])}")
     log(f"[31] 8K {json.dumps(slice6['8k']['result'])}")
+    log(f"[31] mesh {json.dumps({k: v for k, v in mesh_run['nccl'].items()})}")
     log(f"[31] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

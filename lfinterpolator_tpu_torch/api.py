@@ -1,9 +1,9 @@
 """High-level API: the Interpolator, on PyTorch.
 
-Port of the single-device part of ``lfinterpolator_tpu/api.py``
-(``RenderResult``, ``QuiltResult``, ``Interpolator.__init__``/
-``interpolate``/``render_quilt``/``interpolate_batch``, the view-batched
-arms, the one-shot ``interpolate``):
+Port of ``lfinterpolator_tpu/api.py`` (``RenderResult``, ``QuiltResult``,
+``Interpolator.__init__``/``interpolate``/``render_quilt``/
+``interpolate_batch``, the view-batched arms, the mesh arms, the one-shot
+``interpolate``):
 
     interp = Interpolator("/data/scene")            # load + upload once
     result = interp.interpolate("0,0,1,1", method="TEN", focus=0.2)
@@ -25,7 +25,16 @@ view batches, each downloaded into pinned host memory while the next one
 renders (``_view_batched``). ``device="cuda"`` without a CUDA device
 raises; nothing runs on the CPU instead.
 
-Not ported yet (ROADMAP.md): meshes (slice 5).
+With ``mesh=`` (``parallel.mesh.make_mesh``, after
+``parallel.distributed.initialize``) every rank of the process group
+constructs the Interpolator and makes the same calls: each renders its
+views and rows of the frame (``parallel/mesh.py``) and the results are
+gathered to every rank, so each returns the whole result. On a mesh a
+render's per-rank bytes are checked against its GPU and raise with
+``capacity.MESH_HINT`` when they do not fit (no view batches), the quilt
+takes the two-stage route, ``focus_pyramid`` is ignored (the exact sweep
+runs, as ``api.py:690-692`` routes it), and `benchmark_runs` are timed on
+the host clock from a barrier to a barrier across the ranks.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from .core.config import RenderConfig
 from .io import LightField, load_light_field, write_quilt, write_views
 from .models import pipeline
 from .ops import blend_torch, quilt, quilt_torch
+from .parallel import mesh as pmesh
 from .utils import devices, profiling, transfer
 
 
@@ -153,6 +163,7 @@ class Interpolator:
         config: RenderConfig | None = None,
         progress: bool = True,
         device: str | torch.device = "cuda",
+        mesh=None,  # parallel.mesh.make_mesh()'s (view, space) DeviceMesh
     ):
         self.device = devices.resolve(device, "the render")
         self.config = config or RenderConfig()
@@ -166,6 +177,19 @@ class Interpolator:
                 f"{self.lf.width}x{self.lf.height} images"
             )
         g, h, w = self.lf.grid_size, self.lf.height, self.lf.width
+        self.mesh = mesh
+        if mesh is not None:
+            n_space, n_view = pmesh.axis_size(mesh, "space"), pmesh.axis_size(mesh, "view")
+            if h % n_space != 0:
+                raise ValueError(
+                    f"Image height {h} must divide by the mesh space axis "
+                    f"({n_space}) for sharded rendering"
+                )
+            if self.config.view_count % n_view != 0:
+                raise ValueError(
+                    f"view_count {self.config.view_count} must divide by the "
+                    f"mesh view axis ({n_view})"
+                )
         if self.device.type == "cuda":
             need, free = g * 3 * h * w, torch.cuda.mem_get_info(self.device)[0]
             if need > free:
@@ -173,8 +197,11 @@ class Interpolator:
                     f"the {g}-image stack needs {need / 2**30:.2f} GiB of "
                     f"device memory, {free / 2**30:.2f} GiB are free"
                 )
-        # One host->device upload of the planar RGB stack (api.py:239-260).
+        # One host->device upload of the planar RGB stack (api.py:239-260),
+        # on a mesh then rank 0's bytes on every rank.
         self.images = state.upload_images(self.lf.images, self.device)
+        if mesh is not None:
+            pmesh.replicate(mesh, self.images)
         # The downloads' side stream (utils/transfer.py).
         self._download = transfer.Downloader(self.device)
 
@@ -225,7 +252,10 @@ class Interpolator:
                     progress: bool, extra: int = 0):
         """-> the step of a fixed-focus render of the weight rows `wm`
         [V, G] at the shifts `fo` [G, 2]: () -> (views, None), views device
-        [V, C, H, W], or host [V, H, W, C] when the plan batches."""
+        [V, C, H, W], or host [V, H, W, C] when the plan batches. On a
+        mesh: this rank's block [V/nv, C, H/ns, W] (``_collect`` gathers)."""
+        if self.mesh is not None:
+            return self._mesh_fixed_step(wm, fo, method_key, extra)
         plan = self._plan(len(wm), method_key, 0, extra, progress)
         weights, shifts = state.upload_params(wm, fo, self.device)
 
@@ -242,7 +272,10 @@ class Interpolator:
         """-> the step of an all-in-focus render of `params` (its weight
         rows, possibly several trajectories' stacked): () -> (views, maps
         [2, H, W] on the device). The maps are estimated once per step;
-        every view batch blends with them on the per-pixel-focus kernel."""
+        every view batch blends with them on the per-pixel-focus kernel. On a
+        mesh: this rank's blocks (``_collect`` gathers)."""
+        if self.mesh is not None:
+            return self._mesh_allfocus_step(params, cfg, method_key, progress, extra)
         plan = self._plan(len(params.weights), method_key, len(params.focus_ids),
                           extra, progress)
         weights, offsets, ids, tables = state.upload_allfocus(params, self.device)
@@ -264,6 +297,58 @@ class Interpolator:
                 return self._view_batched(weights, plan.view_batch, render), maps
             return render(weights), maps
         return step
+
+    def _check_mesh(self, phases: dict[str, int], what: str, extra: int) -> None:
+        """Raise ValueError with the per-rank arithmetic and
+        ``capacity.MESH_HINT`` before anything is allocated when a shard's
+        peak (`phases`, from ``pmesh.*_shard_bytes``; the stack is resident
+        already) and `extra` bytes do not fit this rank's device."""
+        capacity.check_capacity(
+            phases["peak"] - phases["stack"] + extra,
+            f"{what} (per rank, beyond the replicated stack)",
+            device=self.device, hint=capacity.MESH_HINT)
+
+    def _mesh_fixed_step(self, wm: np.ndarray, fo: np.ndarray, method_key: str,
+                         extra: int = 0):
+        """The mesh arm of ``_fixed_step`` (``api.py:732-765``)."""
+        g, c, h, w = self.images.shape
+        self._check_mesh(pmesh.fixed_shard_bytes(
+            pmesh.axis_size(self.mesh, "view"), pmesh.axis_size(self.mesh, "space"),
+            g, c, h, w, len(wm), method=method_key),
+            "Mesh fixed-focus render", extra)
+        weights_l, shifts = state.upload_params(pmesh.shard_weights(self.mesh, wm),
+                                                fo, self.device)
+        return lambda: (pmesh.render_fixed_sharded(self.mesh, self.images, weights_l,
+                                                   shifts, method_key), None)
+
+    def _mesh_allfocus_step(self, params: state.AllFocusParams, cfg: RenderConfig,
+                            method_key: str, progress: bool, extra: int = 0):
+        """The mesh arm of ``_allfocus_step`` (``api.py:654-700``): the
+        exact or fast sweep, never the pyramid."""
+        g, c, h, w = self.images.shape
+        self._check_mesh(pmesh.allfocus_shard_bytes(
+            pmesh.axis_size(self.mesh, "view"), pmesh.axis_size(self.mesh, "space"),
+            g, len(params.focus_ids), c, h, w, len(params.weights),
+            radius=params.radius, filter_radius=params.filter_radius,
+            steps=cfg.focus_steps), "Mesh all-focus render", extra)
+        local = dataclasses.replace(
+            params, weights=pmesh.shard_weights(self.mesh, params.weights))
+        weights_l, offsets, ids, tables = state.upload_allfocus(local, self.device)
+        if progress:
+            print("Estimating focus map...")
+        return lambda: pmesh.render_all_focus_sharded(
+            self.mesh, self.images, weights_l, offsets, ids, tables,
+            method=method_key, radius=params.radius,
+            filter_radius=params.filter_radius, exact_taps=cfg.exact_focus_taps)
+
+    def _collect(self, views, maps):
+        """A step's output as the whole result: on a mesh, every rank's
+        blocks gathered to device [V, C, H, W] views and [2, H, W] maps on
+        every rank; else as it is."""
+        if self.mesh is None:
+            return views, maps
+        views = pmesh.gather_views_device(self.mesh, views)
+        return views, None if maps is None else pmesh.gather_rows(self.mesh, maps)
 
     def _render_step(self, trajectory: str, cfg: RenderConfig, method_key: str,
                      progress: bool, extra: int = 0):
@@ -298,7 +383,8 @@ class Interpolator:
             return out, []
         if progress:
             print("Rendering views...")
-        bench = profiling.benchmark(step, runs=benchmark_runs, device=self.device)
+        timer = profiling.benchmark if self.mesh is None else pmesh.benchmark
+        bench = timer(step, runs=benchmark_runs, device=self.device)
         if progress:
             print(
                 f"Average time of {benchmark_runs} runs: "
@@ -333,8 +419,8 @@ class Interpolator:
         """
         cfg, method_key = self._config(focus, focus_range, method, effect, aspect)
         step = self._render_step(trajectory, cfg, method_key, progress)
-        (views, maps), run_times = self._run(step, benchmark_runs, progress)
-        views_np, maps_np = self._to_host(views, maps)
+        out, run_times = self._run(step, benchmark_runs, progress)
+        views_np, maps_np = self._to_host(*self._collect(*out))
         return RenderResult(
             views=views_np, maps=maps_np, run_times_s=run_times, config=cfg,
             device=str(self.device),
@@ -383,7 +469,8 @@ class Interpolator:
         if th < 1 or tw < 1:
             raise ValueError(f"tile size must be positive, got {tile_size}")
         canvas = 2 * n * 3 * th * tw  # the canvas and its [H, W, C] copy
-        fused = not cfg.uses_focus_map and method_key == "TEN" and native
+        fused = (self.mesh is None and not cfg.uses_focus_map
+                 and method_key == "TEN" and native)
         if fused:
             wm, fo = state.render_params(
                 trajectory, cols=lf.cols, rows=lf.rows, height=lf.height,
@@ -404,7 +491,7 @@ class Interpolator:
                                        extra=canvas + resize)
 
             def step() -> torch.Tensor:
-                views, _ = render()
+                views, _ = self._collect(*render())
                 if isinstance(views, np.ndarray):  # view batches, on the host
                     return _assemble_host_views(views[:n], self.device, cols,
                                                 rows, tile_size)
@@ -477,12 +564,17 @@ class Interpolator:
             ]
             big = np.concatenate([wm for wm, _ in members])  # [len(idxs) * V, G]
             fo = members[0][1]  # the first member's shifts
+            if self.mesh is not None and len(big) % pmesh.axis_size(self.mesh, "view"):
+                raise ValueError(
+                    f"batched view count {len(big)} must divide by the mesh "
+                    f"view axis ({pmesh.axis_size(self.mesh, 'view')})"
+                )
             if cfg.uses_focus_map:
                 step = self._allfocus_step(dataclasses.replace(params, weights=big),
                                            cfg, method_key, progress)
             else:
                 step = self._fixed_step(big, fo, method_key, progress)
-            views_np, maps_np = self._to_host(*step())
+            views_np, maps_np = self._to_host(*self._collect(*step()))
             for j, i in enumerate(idxs):
                 results[i] = RenderResult(
                     views=views_np[j * v:(j + 1) * v], maps=maps_np,

@@ -147,18 +147,34 @@ def plan_render(
 
 
 def check_capacity(resident_bytes: int, what: str, *, device="cuda",
-                   budget: int | None = None) -> None:
+                   budget: int | None = None, hint: str | None = None) -> None:
     """Raise before any device allocation when `resident_bytes` cannot fit.
 
     A lower-bound guard for paths without a batched arm (the stream, the
-    fused quilt): it trips only on arithmetic certainty."""
+    fused quilt, a mesh rank's shard): it trips only on arithmetic
+    certainty. `hint` replaces the default advice (a mesh render must not
+    be told to batch views, ``MESH_HINT``)."""
     b = device_hbm_bytes(device) if budget is None else budget
     b_eff = b - _headroom(b)
     if resident_bytes > b_eff:
         unit, div = _units(resident_bytes, b_eff)
+        hint = hint or (
+            "Use Interpolator.interpolate (which batches views "
+            "automatically), or reduce the resolution or the grid."
+        )
         raise ValueError(
             f"{what} needs at least {resident_bytes / div:.2f} {unit} of "
-            f"device memory against a {b_eff / div:.2f} {unit} budget. Use "
-            f"Interpolator.interpolate (which batches views automatically), "
-            f"or reduce the resolution or the grid."
+            f"device memory against a {b_eff / div:.2f} {unit} budget. {hint}"
         )
+
+
+#: The advice of a mesh rank's shard that does not fit, the port's wording
+#: of ``lfinterpolator_tpu/core/capacity.py:402-407`` (the port batches
+#: views but has no row-block arm on one device).
+MESH_HINT = (
+    "Add GPUs along the mesh's 'space' axis (row sharding divides every "
+    "per-rank operand but the replicated stack and the gathered views), "
+    "shrink the replicated stack (fewer grid images or lower resolution), "
+    "or render on one GPU without a mesh (Interpolator.interpolate batches "
+    "views automatically)."
+)

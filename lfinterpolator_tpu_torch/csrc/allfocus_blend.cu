@@ -56,15 +56,18 @@ using Tile = lfi::BlendTile<kNT>;
 
 static_assert(Tile::kP == kThreads, "a thread stages one pixel of the tile");
 
-// Dynamic shared memory: Tile::smem_bytes(padded_grid(G), 1).
+// Renders rows [r0, r0 + hb) of the frame: the coordinates take the frame
+// row y = r0 + yb and clamp against the full H; the map and the output hold
+// the block's rows only. Dynamic shared memory: Tile::smem_bytes(padded_grid(G), 1).
 __global__ void __launch_bounds__(kThreads)
 allfocus_blend_kernel(const uint8_t* __restrict__ img,   // [G, C, H, W]
                       const float* __restrict__ w,       // [V, G], fp16-valued
                       const float* __restrict__ offs,    // [G, 2] (x, y)
-                      const uint8_t* __restrict__ fmap,  // [H, W]
+                      const uint8_t* __restrict__ fmap,  // [hb, W]
                       const float* __restrict__ decode,  // [256]
-                      uint8_t* __restrict__ out,         // [V, C, H, W]
-                      int G, int C, int H, int W, int V, int tiles_x) {
+                      uint8_t* __restrict__ out,         // [V, C, hb, W]
+                      int G, int C, int H, int W, int V, int r0, int hb,
+                      int tiles_x) {
   extern __shared__ uint4 smem[];
   __shared__ float ox_s[kMaxGrid];
   __shared__ float oy_s[kMaxGrid];
@@ -74,17 +77,18 @@ allfocus_blend_kernel(const uint8_t* __restrict__ img,   // [G, C, H, W]
   uint8_t* const out_s = reinterpret_cast<uint8_t*>(smem) + Tile::w_bytes(Gp);
   __half* const x_s = reinterpret_cast<__half*>(out_s + Tile::out_bytes());
 
-  const int row = blockIdx.x / tiles_x;  // c * H + y
+  const int row = blockIdx.x / tiles_x;  // c * hb + yb
   const int x0 = (blockIdx.x - row * tiles_x) * Tile::kP;
-  const int c = row / H;
-  const int y = row - c * H;
+  const int c = row / hb;
+  const int yb = row - c * hb;  // row of the block
+  const int y = r0 + yb;        // row of the frame
 
   for (int g = threadIdx.x; g < Gp; g += kThreads) {
     ox_s[g] = g < G ? offs[2 * g] : 0.0f;
     oy_s[g] = g < G ? offs[2 * g + 1] : 0.0f;
   }
   const int x = x0 + threadIdx.x;
-  const float f = x < W ? decode[fmap[(int64_t)y * W + x]] : 0.0f;
+  const float f = x < W ? decode[fmap[(int64_t)yb * W + x]] : 0.0f;
   __syncthreads();
 
   // This thread's pixel of every image, kLoads images at a time: the loads
@@ -111,8 +115,9 @@ allfocus_blend_kernel(const uint8_t* __restrict__ img,   // [G, C, H, W]
       x_s[(g0 + u) * Tile::kXStride + threadIdx.x] = __ushort2half_rn(px[u]);
   }
 
-  uint8_t* const px0 = out + (int64_t)c * plane + (int64_t)y * W + x0;
-  const int64_t view_stride = (int64_t)C * plane;
+  const int64_t out_plane = (int64_t)hb * W;
+  uint8_t* const px0 = out + (int64_t)c * out_plane + (int64_t)yb * W + x0;
+  const int64_t view_stride = (int64_t)C * out_plane;
   for (int v0 = 0; v0 < V; v0 += kViewChunk) {
     const int vn = V - v0 < kViewChunk ? V - v0 : kViewChunk;
     lfi::stage_weights(w, G, Gp, v0, vn, w_s);
@@ -129,15 +134,19 @@ extern "C" {
 // Largest G the kernel takes (the wrapper checks against it).
 int lfi_allfocus_blend_max_grid(void) { return kMaxGrid; }
 
+// Rows [r0, r0 + hb) of the render into `out` [V, C, hb, W], with `fmap`
+// the map of those rows [hb, W]; r0 = 0 and hb = H render the frame.
 // Launches on `stream`; does not synchronise and allocates nothing.
 // Returns the launch's CUDA error (0 on success).
 int lfi_allfocus_blend(const uint8_t* img, const float* w, const float* offs,
                        const uint8_t* fmap, const float* decode, uint8_t* out,
-                       int G, int C, int H, int W, int V, cudaStream_t stream) {
-  if (G < 1 || G > kMaxGrid || C < 1 || H < 1 || W < 1 || V < 1)
+                       int G, int C, int H, int W, int V, int r0, int hb,
+                       cudaStream_t stream) {
+  if (G < 1 || G > kMaxGrid || C < 1 || H < 1 || W < 1 || V < 1 || r0 < 0 ||
+      hb < 1 || hb > H - r0)
     return (int)cudaErrorInvalidValue;
   const int64_t tiles_x = (W + Tile::kP - 1) / Tile::kP;
-  const int64_t blocks = (int64_t)C * H * tiles_x;
+  const int64_t blocks = (int64_t)C * hb * tiles_x;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = Tile::smem_bytes(lfi::padded_grid(G), 1);
   // More than 48 KB of shared memory must be asked for; a refusal is the
@@ -147,7 +156,7 @@ int lfi_allfocus_blend(const uint8_t* img, const float* w, const float* offs,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   allfocus_blend_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      img, w, offs, fmap, decode, out, G, C, H, W, V, (int)tiles_x);
+      img, w, offs, fmap, decode, out, G, C, H, W, V, r0, hb, (int)tiles_x);
   return (int)cudaGetLastError();
 }
 

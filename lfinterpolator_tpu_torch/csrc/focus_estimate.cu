@@ -76,6 +76,15 @@
 //     serves kMapRows taps;
 //   * a warp spans 32 neighbouring pixels of one row in every pass, so every
 //     load of pixels, map bytes and flags is one coalesced segment.
+//
+// Row blocks: both passes can compute rows [r0, r0 + hb) of the frame only
+// (one rank's rows of a multi-GPU render; the exact and fast rules, not the
+// pyramid's refine pass). The map pass then covers the
+// extended rows [r0 - ry, r0 + hb + ry), the argmin pass the block's pixels;
+// every coordinate is the frame's, clamped against the full H, so a block's
+// neighbours across its edges are the frame's real rows. The row flags, the
+// running best and the map are the block's [.., hb] rows. r0 = 0, hb = H is
+// the whole frame.
 
 #include <limits.h>
 
@@ -150,9 +159,10 @@ __global__ void rgbx_pack_kernel(const uint8_t* __restrict__ planar,
 }
 
 // Pass 1. Block (j, bx, by) computes D of candidate cands[j] on the tile of
-// 32 columns x (kBlockY * kMapRows) rows of the extended domain at (bx, by),
-// into d[j]. Thread (tx, ty) owns column tx, rows ty + kBlockY * r. The
-// candidate is the fastest grid dimension: the blocks of one tile run
+// 32 columns x (kBlockY * kMapRows) rows of the row block's extended domain
+// at (bx, by), into d[j]; extended row ey is frame row r0 + ey - ry.
+// Thread (tx, ty) owns column tx, rows ty + kBlockY * r. The candidate is
+// the fastest grid dimension: the blocks of one tile run
 // together and read nearly the same pixels of every view (neighbouring
 // candidates shift a view by a few pixels), so the views come from L2 and
 // not once per candidate from device memory.
@@ -160,12 +170,12 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 cheby_map_kernel(const uint32_t* __restrict__ views,  // [K, H, W] RGBx
                  const float* __restrict__ offs,      // [K, 2] (x, y)
                  const float* __restrict__ cands,     // [gridDim.x]
-                 uint8_t* __restrict__ d,             // [gridDim.x, H + 2ry, W + 2rx]
-                 int K, int H, int W, int rx, int ry) {
+                 uint8_t* __restrict__ d,             // [gridDim.x, hb + 2ry, W + 2rx]
+                 int K, int H, int W, int rx, int ry, int r0, int hb) {
   constexpr int kTileRows = kBlockY * kMapRows;
   __shared__ int col_s[kViewTile][kBlockX];    // clamped source column
   __shared__ int row_s[kViewTile][kTileRows];  // clamped source row * W
-  const int We = W + 2 * rx, He = H + 2 * ry;
+  const int We = W + 2 * rx, He = hb + 2 * ry;
   const float f = cands[blockIdx.x];
   const int ex0 = blockIdx.y * kBlockX;
   const int ey0 = blockIdx.z * kTileRows;
@@ -182,7 +192,7 @@ cheby_map_kernel(const uint32_t* __restrict__ views,  // [K, H, W] RGBx
     }
     for (int e = tid; e < kn * kTileRows; e += kBlockX * kBlockY) {
       const int kk = e / kTileRows, j = e % kTileRows;
-      row_s[kk][j] = lfi::focus_coord(ey0 + j - ry, f, offs[2 * (k0 + kk) + 1], H) * W;
+      row_s[kk][j] = lfi::focus_coord(r0 + ey0 + j - ry, f, offs[2 * (k0 + kk) + 1], H) * W;
     }
     __syncthreads();
     const uint32_t* vk = views + (int64_t)k0 * plane;
@@ -265,23 +275,28 @@ __device__ __forceinline__ int nine_tap_cost(const uint32_t* __restrict__ views,
   return cost;
 }
 
-// Pass 2 over the candidates [c0, c0 + n), whose maps are d[0 .. n). The
-// running best of a pixel is the key (cost << 8) | i: it comes from `best`
-// unless c0 == 0, and goes back there unless c0 + n == S, where the map byte
-// is written instead.
+// Pass 2 over the candidates [c0, c0 + n), whose maps are d[0 .. n), for
+// the pixels of rows [row0, row0 + rows). The running best of a pixel is
+// the key (cost << 8) | i: it comes from `best` unless c0 == 0, and goes
+// back there unless c0 + n == S, where the map byte is written instead.
+// kPres (the pyramid's refine pass) always takes the whole frame, fixed at
+// compile time, so its code stays as it was before row blocks: with a
+// runtime block it ran 10% slower on an H100 (chip_smoke.py phase 12).
 template <bool kExact, bool kPres>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 focus_argmin_kernel(const uint32_t* __restrict__ views,     // [K, H, W] RGBx
                     const float* __restrict__ offs,         // [K, 2] (x, y)
                     const float* __restrict__ cands,        // [S]
                     const uint8_t* __restrict__ cand_bytes, // [S]
-                    const uint8_t* __restrict__ d,          // [n, H + 2ry, W + 2rx]
-                    const uint8_t* __restrict__ row_clean,  // [S, H], kExact
+                    const uint8_t* __restrict__ d,          // [n, hb + 2ry, W + 2rx]
+                    const uint8_t* __restrict__ row_clean,  // [S, hb], kExact
                     const uint8_t* __restrict__ col_clean,  // [S, W], kExact
-                    int32_t* __restrict__ best,             // [H, W] keys
-                    uint8_t* __restrict__ out,              // [H, W]
-                    int K, int H, int W, int S, int rx, int ry, int c0, int n,
-                    Presence pres) {
+                    int32_t* __restrict__ best,             // [hb, W] keys
+                    uint8_t* __restrict__ out,              // [hb, W]
+                    int K, int H, int W, int S, int rx, int ry, int row0,
+                    int rows, int c0, int n, Presence pres) {
+  const int r0 = kPres ? 0 : row0;
+  const int hb = kPres ? H : rows;
   __shared__ float ox_s[kMaxViews];
   __shared__ float oy_s[kMaxViews];
   if (kExact) {
@@ -293,13 +308,14 @@ focus_argmin_kernel(const uint32_t* __restrict__ views,     // [K, H, W] RGBx
     __syncthreads();
   }
   const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const int We = W + 2 * rx, He = H + 2 * ry;
+  const int yb = blockIdx.y * kBlockY + threadIdx.y;  // row of the block
+  if (x >= W || yb >= hb) return;
+  const int y = r0 + yb;  // row of the frame
+  const int We = W + 2 * rx, He = hb + 2 * ry;
   const int64_t map_plane = (int64_t)He * We;
   // tap (sy, sx) of this pixel lies at dp[(ry + sy) * We + rx + sx]
-  const uint8_t* dp = d + (int64_t)y * We + x;
-  const int64_t pixel = (int64_t)y * W + x;
+  const uint8_t* dp = d + (int64_t)yb * We + x;
+  const int64_t pixel = (int64_t)yb * W + x;
 
   const int32_t* words =
       kPres ? pres.words + ((int64_t)(y / pres.tb) * pres.n_wc + x / pres.wco) * pres.cc
@@ -309,7 +325,7 @@ focus_argmin_kernel(const uint32_t* __restrict__ views,     // [K, H, W] RGBx
     const int i = c0 + j;
     if (kPres && !((words[i / pres.sc] >> (i % pres.sc)) & 1)) continue;
     int cost;
-    if (kExact && !(row_clean[(int64_t)i * H + y] & col_clean[(int64_t)i * W + x])) {
+    if (kExact && !(row_clean[(int64_t)i * hb + yb] & col_clean[(int64_t)i * W + x])) {
       cost = nine_tap_cost(views, ox_s, oy_s, cands[i], K, H, W, x, y, rx, ry);
     } else {
       cost = 0;
@@ -326,9 +342,10 @@ focus_argmin_kernel(const uint32_t* __restrict__ views,     // [K, H, W] RGBx
     best[pixel] = key;
 }
 
-bool bad_shape(int K, int H, int W, int S, int rx, int ry) {
+bool bad_shape(int K, int H, int W, int S, int rx, int ry, int r0, int hb) {
   return K < 1 || K > kMaxViews || S < 1 || S > kMaxSteps || H < 1 || W < 1 ||
-         rx < 0 || ry < 0 || (int64_t)(H + 2 * ry) * (W + 2 * rx) > INT_MAX;
+         rx < 0 || ry < 0 || r0 < 0 || hb < 1 || hb > H - r0 ||
+         (int64_t)(hb + 2 * ry) * (W + 2 * rx) > INT_MAX;
 }
 
 template <bool kPres>
@@ -336,23 +353,25 @@ int launch_argmin(const uint32_t* views, const float* offs, const float* cands,
                   const uint8_t* cand_bytes, const uint8_t* d,
                   const uint8_t* row_clean, const uint8_t* col_clean,
                   int32_t* best, uint8_t* out, int K, int H, int W, int S, int rx,
-                  int ry, int c0, int n, Presence pres, cudaStream_t stream) {
+                  int ry, int r0, int hb, int c0, int n, Presence pres,
+                  cudaStream_t stream) {
+  if (kPres && (r0 != 0 || hb != H)) return (int)cudaErrorInvalidValue;
   const bool exact = row_clean != nullptr;
-  if (bad_shape(K, H, W, S, rx, ry) || c0 < 0 || n < 1 || c0 + n > S ||
+  if (bad_shape(K, H, W, S, rx, ry, r0, hb) || c0 < 0 || n < 1 || c0 + n > S ||
       (row_clean == nullptr) != (col_clean == nullptr) ||
       (best == nullptr && (c0 > 0 || c0 + n < S)) || (kPres && !exact))
     return (int)cudaErrorInvalidValue;
   const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
+  const dim3 grid((W + kBlockX - 1) / kBlockX, (hb + kBlockY - 1) / kBlockY);
   if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
   if (exact)
     focus_argmin_kernel<true, kPres><<<grid, block, 0, stream>>>(
         views, offs, cands, cand_bytes, d, row_clean, col_clean, best, out, K, H, W,
-        S, rx, ry, c0, n, pres);
+        S, rx, ry, r0, hb, c0, n, pres);
   else
     focus_argmin_kernel<false, false><<<grid, block, 0, stream>>>(
         views, offs, cands, cand_bytes, d, row_clean, col_clean, best, out, K, H, W,
-        S, rx, ry, c0, n, pres);
+        S, rx, ry, r0, hb, c0, n, pres);
   return (int)cudaGetLastError();
 }
 
@@ -382,40 +401,48 @@ int lfi_rgbx_pack(const uint8_t* planar, uint32_t* words, int K, int C,
   return (int)cudaGetLastError();
 }
 
-// Pass 1: the maps of the n candidates cands[0 .. n) into d [n, H + 2ry,
-// W + 2rx].
+// The map and argmin entries take the row block [r0, r0 + hb) of the H
+// rows (r0 = 0, hb = H: the whole frame; the presence-predicated argmin
+// takes the whole frame only); `views` always hold the frame.
+
+// Pass 1: the maps of the n candidates cands[0 .. n) on the block's
+// extended rows into d [n, hb + 2ry, W + 2rx].
 int lfi_focus_cheby_map(const uint32_t* views, const float* offs,
                         const float* cands, uint8_t* d, int K, int H, int W,
-                        int n, int rx, int ry, cudaStream_t stream) {
-  if (bad_shape(K, H, W, n, rx, ry)) return (int)cudaErrorInvalidValue;
+                        int n, int rx, int ry, int r0, int hb,
+                        cudaStream_t stream) {
+  if (bad_shape(K, H, W, n, rx, ry, r0, hb)) return (int)cudaErrorInvalidValue;
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid(n, (W + 2 * rx + kBlockX - 1) / kBlockX,
-                  (H + 2 * ry + kBlockY * kMapRows - 1) / (kBlockY * kMapRows));
+                  (hb + 2 * ry + kBlockY * kMapRows - 1) / (kBlockY * kMapRows));
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
-  cheby_map_kernel<<<grid, block, 0, stream>>>(views, offs, cands, d, K, H, W, rx, ry);
+  cheby_map_kernel<<<grid, block, 0, stream>>>(views, offs, cands, d, K, H, W, rx, ry,
+                                               r0, hb);
   return (int)cudaGetLastError();
 }
 
 // Pass 2 over the candidates [c0, c0 + n) of the S in cands, whose maps are
 // d [n, ...]. The fast rule when row_clean and col_clean are null, else the
-// exact rule with those flags ([S, H] and [S, W] bytes, 1 = clean). `best`
-// ([H, W] int32) carries the running keys between calls and may be null
-// when one call covers all S; the call that ends at S writes `out`.
+// exact rule with those flags ([S, hb] and [S, W] bytes, 1 = clean; the
+// block's rows of the frame's flags). `best` ([hb, W] int32) carries the
+// running keys between calls and may be null when one call covers all S;
+// the call that ends at S writes `out` [hb, W].
 int lfi_focus_estimate(const uint32_t* views, const float* offs,
                        const float* cands, const uint8_t* cand_bytes,
                        const uint8_t* d, const uint8_t* row_clean,
                        const uint8_t* col_clean, int32_t* best, uint8_t* out,
-                       int K, int H, int W, int S, int rx, int ry, int c0, int n,
-                       cudaStream_t stream) {
+                       int K, int H, int W, int S, int rx, int ry, int r0, int hb,
+                       int c0, int n, cudaStream_t stream) {
   return launch_argmin<false>(views, offs, cands, cand_bytes, d, row_clean,
-                              col_clean, best, out, K, H, W, S, rx, ry, c0, n,
-                              Presence{nullptr, 1, 1, 1, 1, 1}, stream);
+                              col_clean, best, out, K, H, W, S, rx, ry, r0, hb, c0,
+                              n, Presence{nullptr, 1, 1, 1, 1, 1}, stream);
 }
 
 // The exact rule restricted by the presence words `pres` ([nb, n_wc, cc]
-// int32; see Presence). The words must cover the frame and the candidates
-// (nb * tb >= H, n_wc * wco >= W, cc * sc >= S), and tb and wco must be
-// multiples of the block's 8 rows and 32 columns.
+// int32; see Presence), on the whole frame (d from a map pass with r0 = 0,
+// hb = H). The words must cover the frame and the candidates (nb * tb >=
+// H, n_wc * wco >= W, cc * sc >= S), and tb and wco must be multiples of
+// the block's 8 rows and 32 columns.
 int lfi_focus_estimate_pres(const uint32_t* views, const float* offs,
                             const float* cands, const uint8_t* cand_bytes,
                             const uint8_t* d, const uint8_t* row_clean,
@@ -429,7 +456,7 @@ int lfi_focus_estimate_pres(const uint32_t* views, const float* offs,
       (int64_t)cc * sc < S)
     return (int)cudaErrorInvalidValue;
   return launch_argmin<true>(views, offs, cands, cand_bytes, d, row_clean,
-                             col_clean, best, out, K, H, W, S, rx, ry, c0, n,
+                             col_clean, best, out, K, H, W, S, rx, ry, 0, H, c0, n,
                              Presence{pres, tb, wco, sc, n_wc, cc}, stream);
 }
 

@@ -126,7 +126,9 @@ __device__ __forceinline__ void finish_span16(const Span16& s,
   reinterpret_cast<uint4*>(dst)[1] = h[1];
 }
 
-// kQuilt: `out` is the [C, (V / cols) * H, cols * W] canvas, else [V, C, H, W].
+// Renders rows [r0, r0 + hb) of the frame: block row j is image row
+// y = r0 + j, and the shifts clamp against the full H. kQuilt: `out` is the
+// [C, (V / cols) * H, cols * W] canvas (r0 = 0, hb = H), else [V, C, hb, W].
 // Dynamic shared memory: Tile::smem_bytes(padded_grid(G), 1).
 template <bool kQuilt>
 __global__ void __launch_bounds__(kThreads)
@@ -135,7 +137,7 @@ shift_blend_kernel(const uint8_t* __restrict__ img,    // [G, C, H, W]
                    const int32_t* __restrict__ shifts,  // [G, 2] (dx, dy), |dx|<=W, |dy|<=H
                    uint8_t* __restrict__ out,
                    int G, int C, int H, int W, int V, int cols,
-                   int tiles_x) {
+                   int r0, int hb, int tiles_x) {
   extern __shared__ uint4 smem[];
   __shared__ int src_row[kMaxGrid];  // clamp(y + dy_g, 0, H-1)
   __shared__ int dx_s[kMaxGrid];
@@ -145,8 +147,9 @@ shift_blend_kernel(const uint8_t* __restrict__ img,    // [G, C, H, W]
   uint8_t* const out_s = reinterpret_cast<uint8_t*>(smem) + Tile::w_bytes(Gp);
   __half* const x_s = reinterpret_cast<__half*>(out_s + Tile::out_bytes());
 
-  const int y = blockIdx.x / tiles_x;
-  const int x0 = (blockIdx.x - y * tiles_x) * Tile::kP;
+  const int yb = blockIdx.x / tiles_x;  // row of the block
+  const int x0 = (blockIdx.x - yb * tiles_x) * Tile::kP;
+  const int y = r0 + yb;  // row of the frame
 
   for (int g = threadIdx.x; g < G; g += kThreads) {
     src_row[g] = lfi::clamp_index(y + shifts[2 * g + 1], H);
@@ -155,6 +158,7 @@ shift_blend_kernel(const uint8_t* __restrict__ img,    // [G, C, H, W]
   __syncthreads();
 
   const int64_t plane = (int64_t)H * W;
+  const int64_t out_plane = (int64_t)hb * W;
   const int64_t canvas_w = (int64_t)cols * W;
   const uint8_t* const img_end = img + (int64_t)G * C * plane;
   constexpr int kSpans = Tile::kP / 16;  // 16-pixel spans per staged row
@@ -194,7 +198,7 @@ shift_blend_kernel(const uint8_t* __restrict__ img,    // [G, C, H, W]
         if (kQuilt)  // view v's tile (v / cols, v % cols) of channel c's canvas plane
           return out + ((int64_t)c * (V / cols) * H + (int64_t)(v / cols) * H + y) * canvas_w +
                  (int64_t)(v % cols) * W + x0;
-        return out + ((int64_t)v * C + c) * plane + (int64_t)y * W + x0;
+        return out + ((int64_t)v * C + c) * out_plane + (int64_t)yb * W + x0;
       });
     }
   }
@@ -202,9 +206,10 @@ shift_blend_kernel(const uint8_t* __restrict__ img,    // [G, C, H, W]
 
 template <bool kQuilt>
 int launch(const uint8_t* img, const float* w, const int32_t* shifts, uint8_t* out,
-           int G, int C, int H, int W, int V, int cols, cudaStream_t stream) {
+           int G, int C, int H, int W, int V, int cols, int r0, int hb,
+           cudaStream_t stream) {
   const int64_t tiles_x = (W + Tile::kP - 1) / Tile::kP;
-  const int64_t blocks = (int64_t)H * tiles_x;
+  const int64_t blocks = (int64_t)hb * tiles_x;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = Tile::smem_bytes(lfi::padded_grid(G), 1);
   // More than 48 KB of shared memory must be asked for; a refusal is the
@@ -214,7 +219,7 @@ int launch(const uint8_t* img, const float* w, const int32_t* shifts, uint8_t* o
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   shift_blend_kernel<kQuilt><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      img, w, shifts, out, G, C, H, W, V, cols, (int)tiles_x);
+      img, w, shifts, out, G, C, H, W, V, cols, r0, hb, (int)tiles_x);
   return (int)cudaGetLastError();
 }
 
@@ -225,14 +230,16 @@ extern "C" {
 // Largest G the kernel takes (the wrapper checks against it).
 int lfi_shift_blend_max_grid(void) { return kMaxGrid; }
 
-// Launches on `stream`; does not synchronise and allocates nothing.
-// Returns the launch's CUDA error (0 on success).
+// Rows [r0, r0 + hb) of the render into `out` [V, C, hb, W]; r0 = 0 and
+// hb = H render the frame. Launches on `stream`; does not synchronise and
+// allocates nothing. Returns the launch's CUDA error (0 on success).
 int lfi_shift_blend(const uint8_t* img, const float* w, const int32_t* shifts,
-                    uint8_t* out, int G, int C, int H, int W, int V,
-                    cudaStream_t stream) {
-  if (G < 1 || G > kMaxGrid || C < 1 || H < 1 || W < 1 || V < 1)
+                    uint8_t* out, int G, int C, int H, int W, int V, int r0,
+                    int hb, cudaStream_t stream) {
+  if (G < 1 || G > kMaxGrid || C < 1 || H < 1 || W < 1 || V < 1 || r0 < 0 ||
+      hb < 1 || hb > H - r0)
     return (int)cudaErrorInvalidValue;
-  return launch<false>(img, w, shifts, out, G, C, H, W, V, 1, stream);
+  return launch<false>(img, w, shifts, out, G, C, H, W, V, 1, r0, hb, stream);
 }
 
 // The quilt instantiation: blends views 0..cols*rows-1 (the first
@@ -243,7 +250,7 @@ int lfi_quilt_blend(const uint8_t* img, const float* w, const int32_t* shifts,
                     int rows, cudaStream_t stream) {
   if (G < 1 || G > kMaxGrid || C < 1 || H < 1 || W < 1 || cols < 1 || rows < 1)
     return (int)cudaErrorInvalidValue;
-  return launch<true>(img, w, shifts, out, G, C, H, W, cols * rows, cols, stream);
+  return launch<true>(img, w, shifts, out, G, C, H, W, cols * rows, cols, 0, H, stream);
 }
 
 const char* lfi_cuda_error_string(int code) {

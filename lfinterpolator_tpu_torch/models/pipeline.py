@@ -18,6 +18,12 @@ the box filter in torch ops, and the fused per-pixel-focus blend kernel
 with the filtered map, TEN with the raw one (the reference's asymmetry,
 ``pipeline.py:135``).
 
+Row blocks: ``render_fixed_focus``, ``estimate_focus`` and
+``blend_all_focus`` take ``row_start`` and ``row_count`` and render only
+those rows of the frame (one rank's rows of a multi-GPU render,
+``parallel/mesh.py``, which gathers the raw map between the estimate and
+the filter); the defaults render the frame.
+
 PyTorch runs eagerly, so there is nothing to jit; shapes, focus and
 trajectory may change from call to call at no cost.
 """
@@ -37,14 +43,46 @@ def render_fixed_focus(
     shifts: torch.Tensor,  # [G, 2] int32 (dx, dy)
     method: str = "STD",
     streamed: bool = False,
+    row_start: int = 0,
+    row_count: int | None = None,
 ) -> torch.Tensor:
-    """Fixed-focus render -> [V, C, H, W] uint8. `streamed`: a stream's
-    frame (its kernel launch counts as the stream's)."""
+    """Fixed-focus render of a block of rows -> [V, C, hb, W] uint8.
+    `streamed`: a stream's frame (its kernel launch counts as the stream's)."""
     if method == "STD":
-        return blend_torch.render_fixed(images, weights, shifts)
+        return blend_torch.render_fixed(images, weights, shifts, row_start, row_count)
     if method in ("TEN", "TEN_WM"):
-        return shift_blend.shift_blend(images, weights, shifts, streamed=streamed)
+        return shift_blend.shift_blend(images, weights, shifts, streamed=streamed,
+                                       row_start=row_start, row_count=row_count)
     raise ValueError(f"unknown method {method!r}: use 'STD' or 'TEN'/'TEN_WM'")
+
+
+def estimate_focus(
+    images: torch.Tensor,  # [G, C, H, W] uint8
+    offsets: torch.Tensor,  # [G, 2] float32 (x, y)
+    focus_ids: torch.Tensor,  # [K] int64
+    tables: FocusTables,
+    *,
+    radius: tuple[int, int],
+    exact_taps: bool = True,
+    pyramid: Pyramid | None = None,
+    row_start: int = 0,
+    row_count: int | None = None,
+) -> torch.Tensor:
+    """The raw focus map of a block of rows -> [hb, W] uint8.
+
+    `pyramid` (exact taps, the whole frame only) runs the approximate
+    coarse-to-fine estimate instead of the full sweep."""
+    selected, sel_offsets = images[focus_ids], offsets[focus_ids]
+    if pyramid is None:
+        return focus_estimate.focus_estimate(
+            selected, sel_offsets, tables, radius, exact_taps,
+            row_start=row_start, row_count=row_count)
+    if not exact_taps:
+        raise ValueError("the focus pyramid is exact-taps only")
+    if blend_torch.row_block(images.shape[2], row_start, row_count) != (0, images.shape[2]):
+        raise ValueError("the focus pyramid estimates the whole frame only")
+    return focus_estimate.focus_estimate_pyramid(
+        selected, sel_offsets, tables, radius, pyramid)
 
 
 def compute_focus_maps(
@@ -62,15 +100,8 @@ def compute_focus_maps(
 
     `pyramid` (exact taps only) runs the approximate coarse-to-fine
     estimate instead of the full sweep."""
-    selected, sel_offsets = images[focus_ids], offsets[focus_ids]
-    if pyramid is not None:
-        if not exact_taps:
-            raise ValueError("the focus pyramid is exact-taps only")
-        map0 = focus_estimate.focus_estimate_pyramid(
-            selected, sel_offsets, tables, radius, pyramid)
-    else:
-        map0 = focus_estimate.focus_estimate(
-            selected, sel_offsets, tables, radius, exact_taps)
+    map0 = estimate_focus(images, offsets, focus_ids, tables, radius=radius,
+                          exact_taps=exact_taps, pyramid=pyramid)
     map1 = focus_torch.filter_focus_map(map0, filter_radius)
     return torch.stack([map0, map1])
 
@@ -79,15 +110,19 @@ def blend_all_focus(
     images: torch.Tensor,  # [G, C, H, W] uint8
     weights: torch.Tensor,  # [V, G] float32
     offsets: torch.Tensor,  # [G, 2] float32 (x, y)
-    maps: torch.Tensor,  # [2, H, W] uint8 (from compute_focus_maps)
+    maps: torch.Tensor,  # [2, hb, W] uint8 (raw, filtered) of the block's rows
     decode: torch.Tensor,  # [256] float32
     method: str = "STD",
+    row_start: int = 0,
+    row_count: int | None = None,
 ) -> torch.Tensor:
-    """Per-pixel-focus blend -> views [V, C, H, W] uint8."""
+    """Per-pixel-focus blend of a block of rows -> views [V, C, hb, W]
+    uint8."""
     if method not in ("STD", "TEN", "TEN_WM"):
         raise ValueError(f"unknown method {method!r}: use 'STD' or 'TEN'/'TEN_WM'")
     fmap = maps[1] if method == "STD" else maps[0]
-    return allfocus_blend.allfocus_blend(images, weights, offsets, fmap, decode)
+    return allfocus_blend.allfocus_blend(images, weights, offsets, fmap, decode,
+                                         row_start, row_count)
 
 
 def render_all_focus(

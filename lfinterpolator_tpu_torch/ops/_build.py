@@ -151,17 +151,17 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             signatures = {
-                # (img, w, shifts, out, G, C, H, W, V, stream)
-                "lfi_shift_blend": [ptr] * 4 + [i32] * 5 + [ptr],
-                # (img, w, offs, map, decode, out, G, C, H, W, V, stream)
-                "lfi_allfocus_blend": [ptr] * 6 + [i32] * 5 + [ptr],
+                # (img, w, shifts, out, G, C, H, W, V, r0, hb, stream)
+                "lfi_shift_blend": [ptr] * 4 + [i32] * 7 + [ptr],
+                # (img, w, offs, map, decode, out, G, C, H, W, V, r0, hb, stream)
+                "lfi_allfocus_blend": [ptr] * 6 + [i32] * 7 + [ptr],
                 # (planar, words, K, C, P, stream)
                 "lfi_rgbx_pack": [ptr] * 2 + [i32] * 2 + [ctypes.c_int64, ptr],
-                # (views, offs, cands, d, K, H, W, n, rx, ry, stream)
-                "lfi_focus_cheby_map": [ptr] * 4 + [i32] * 6 + [ptr],
+                # (views, offs, cands, d, K, H, W, n, rx, ry, r0, hb, stream)
+                "lfi_focus_cheby_map": [ptr] * 4 + [i32] * 8 + [ptr],
                 # (views, offs, cands, cand_bytes, d, row_clean, col_clean,
-                #  best, out, K, H, W, S, rx, ry, c0, n, stream)
-                "lfi_focus_estimate": [ptr] * 9 + [i32] * 8 + [ptr],
+                #  best, out, K, H, W, S, rx, ry, r0, hb, c0, n, stream)
+                "lfi_focus_estimate": [ptr] * 9 + [i32] * 10 + [ptr],
                 # (views, offs, cands, cand_bytes, d, row_clean, col_clean,
                 #  best, pres, out, K, H, W, S, rx, ry, c0, n, tb, wco, sc,
                 #  nb, n_wc, cc, stream)

@@ -9,6 +9,12 @@ contraction (``allfocus_pallas.render_allfocus_quantized_fused``):
     out[v,c,y,x] = u8(clip(rint(sum_g W[v,g] *
                    img[g, c, clamp(trunc(y + f*oy_g)), clamp(trunc(x + f*ox_g))])))
 
+A launch may render a block of rows, ``row_start`` and ``row_count`` (one
+rank's rows of a multi-GPU render): the map is then that block's ``[hb, W]``
+rows, the coordinates the frame's, and the output ``[V, C, hb, W]``,
+bit-equal to the same rows of the whole-frame launch. The defaults render
+the frame.
+
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version (``blend_torch.render_allfocus``); a CUDA tensor launches the
 kernel, or raises. No path falls back from one to the other.
@@ -38,13 +44,15 @@ launches = 0
 allfocus_blend_reference = blend_torch.render_allfocus
 
 
-def _check(images, weights, offsets, fmap, decode):
+def _check(images, weights, offsets, fmap, decode, row_start, row_count):
+    """Raise ValueError unless the operands fit; -> the row block (r0, hb)."""
     if images.dtype != torch.uint8 or images.dim() != 4:
         raise ValueError(
             f"images must be [G, C, H, W] uint8, got {tuple(images.shape)} "
             f"{images.dtype}"
         )
     g, c, h, w = images.shape
+    r0, hb = blend_torch.row_block(h, row_start, row_count)
     if weights.dtype != torch.float32 or weights.dim() != 2 or weights.shape[1] != g:
         raise ValueError(
             f"weights must be [V, {g}] float32, got {tuple(weights.shape)} "
@@ -55,9 +63,9 @@ def _check(images, weights, offsets, fmap, decode):
             f"offsets must be [{g}, 2] float32 (x, y), got "
             f"{tuple(offsets.shape)} {offsets.dtype}"
         )
-    if fmap.dtype != torch.uint8 or tuple(fmap.shape) != (h, w):
+    if fmap.dtype != torch.uint8 or tuple(fmap.shape) != (hb, w):
         raise ValueError(
-            f"the focus map must be [{h}, {w}] uint8, got "
+            f"the focus map must be [{hb}, {w}] uint8, got "
             f"{tuple(fmap.shape)} {fmap.dtype}"
         )
     if decode.dtype != torch.float32 or tuple(decode.shape) != (256,):
@@ -73,21 +81,25 @@ def _check(images, weights, offsets, fmap, decode):
         raise ValueError(f"operands on different devices: {sorted(map(str, devices))}")
     if not all(t.is_contiguous() for t in (images, weights, offsets, fmap, decode)):
         raise ValueError("allfocus_blend needs contiguous operands")
+    return r0, hb
 
 
 def allfocus_blend(
     images: torch.Tensor,  # [G, C, H, W] uint8
     weights: torch.Tensor,  # [V, G] float32, fp16-valued
     offsets: torch.Tensor,  # [G, 2] float32 (x, y)
-    fmap: torch.Tensor,  # [H, W] uint8 focus map
+    fmap: torch.Tensor,  # [hb, W] uint8 focus map of the block's rows
     decode: torch.Tensor,  # [256] float32 focus value of each byte
+    row_start: int = 0,
+    row_count: int | None = None,
 ) -> torch.Tensor:
-    """All-in-focus render -> [V, C, H, W] uint8 (kernel on CUDA tensors).
+    """All-in-focus render of rows [row_start, row_start + row_count) ->
+    [V, C, hb, W] uint8 (kernel on CUDA tensors; the defaults: the frame).
     The weights must be fp16-valued (see the module's docstring)."""
     global launches
-    _check(images, weights, offsets, fmap, decode)
+    r0, hb = _check(images, weights, offsets, fmap, decode, row_start, row_count)
     if images.device.type == "cpu":
-        return allfocus_blend_reference(images, weights, offsets, fmap, decode)
+        return allfocus_blend_reference(images, weights, offsets, fmap, decode, r0, hb)
     if images.device.type != "cuda":
         raise ValueError(f"allfocus_blend runs on cpu or cuda, not {images.device}")
 
@@ -102,12 +114,12 @@ def allfocus_blend(
             f"grid images, got {g}"
         )
     with torch.cuda.device(images.device):
-        out = torch.empty((v, c, h, w), dtype=torch.uint8, device=images.device)
+        out = torch.empty((v, c, hb, w), dtype=torch.uint8, device=images.device)
         stream = torch.cuda.current_stream(images.device).cuda_stream
         err = lib.lfi_allfocus_blend(
             images.data_ptr(), weights.data_ptr(), offsets.data_ptr(),
             fmap.data_ptr(), decode.data_ptr(), out.data_ptr(),
-            g, c, h, w, v, stream,
+            g, c, h, w, v, r0, hb, stream,
         )
     if err != 0:
         raise RuntimeError(

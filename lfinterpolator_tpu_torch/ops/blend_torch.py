@@ -19,6 +19,12 @@ byte levels with a presence skip, because gathers are slow on a TPU
 ``[V, G] @ [G, C*H*W]``. These functions are also the plain versions of
 the hand-written kernels in ``ops/shift_blend.py`` and
 ``ops/allfocus_blend.py``. Image layout is planar ``[G, C, H, W]`` uint8.
+
+Every render takes a block of rows, ``row_start`` and ``row_count`` (one
+rank's rows of a multi-GPU render, ``parallel/mesh.py``): it computes only
+rows [row_start, row_start + row_count) of the frame, with the frame's
+coordinates and the clamp against the full H, so a block is equal to the
+same rows of the whole frame. The defaults render the whole frame.
 """
 
 from __future__ import annotations
@@ -36,19 +42,35 @@ def from_planar(views: torch.Tensor) -> torch.Tensor:
     return views.permute(0, 2, 3, 1).contiguous()
 
 
-def shift_stack(images: torch.Tensor, offsets_xy: torch.Tensor) -> torch.Tensor:
-    """out[g, c, y, x] = images[g, c, clamp(y+dy_g), clamp(x+dx_g)].
+def row_block(h: int, row_start: int = 0, row_count: int | None = None) -> tuple[int, int]:
+    """-> (r0, hb): the block [r0, r0 + hb) of `h` rows; `row_count` None
+    is every row from `row_start` on. Raises ValueError unless the block is
+    a non-empty part of the frame."""
+    r0 = int(row_start)
+    hb = h - r0 if row_count is None else int(row_count)
+    if r0 < 0 or hb < 1 or r0 + hb > h:
+        raise ValueError(
+            f"row block [{r0}, {r0 + hb}) is not a non-empty block of the "
+            f"{h} rows")
+    return r0, hb
+
+
+def shift_stack(images: torch.Tensor, offsets_xy: torch.Tensor,
+                row_start: int = 0, row_count: int | None = None) -> torch.Tensor:
+    """out[g, c, y - r0, x] = images[g, c, clamp(y+dy_g), clamp(x+dx_g)]
+    for the rows y of the block (module docstring) -> [G, C, hb, W].
 
     `offsets_xy` is [G, 2] integer (dx, dy). Shifts beyond the image size
     saturate the clamp; they are clipped to [-W, W] / [-H, H] first, as
     ``blend_xla.shift_axis_clamped`` does, so the index sums cannot overflow.
     """
     g, c, h, w = images.shape
+    r0, hb = row_block(h, row_start, row_count)
     dev = images.device
     off = offsets_xy.to(device=dev, dtype=torch.int64)
     dx = off[:, 0].clamp(-w, w)
     dy = off[:, 1].clamp(-h, h)
-    ys = (torch.arange(h, device=dev)[None, :] + dy[:, None]).clamp_(0, h - 1)
+    ys = (torch.arange(r0, r0 + hb, device=dev)[None, :] + dy[:, None]).clamp_(0, h - 1)
     xs = (torch.arange(w, device=dev)[None, :] + dx[:, None]).clamp_(0, w - 1)
     gi = torch.arange(g, device=dev)[:, None, None, None]
     ci = torch.arange(c, device=dev)[None, :, None, None]
@@ -85,31 +107,41 @@ def render_fixed(
     images: torch.Tensor,  # [G, C, H, W] uint8
     weights: torch.Tensor,  # [V, G] float32 (fp16-quantized for parity)
     focused_offsets: torch.Tensor,  # [G, 2] int32 (dx, dy)
+    row_start: int = 0,
+    row_count: int | None = None,
 ) -> torch.Tensor:
-    """Fixed-focus render: shift + blend -> [V, C, H, W] uint8."""
-    return blend(shift_stack(images, focused_offsets), weights)
+    """Fixed-focus render of a block of rows: shift + blend -> [V, C, hb, W]
+    uint8."""
+    return blend(shift_stack(images, focused_offsets, row_start, row_count), weights)
 
 
 def allfocus_selected(
     images: torch.Tensor,  # [G, C, H, W] uint8
     offsets: torch.Tensor,  # [G, 2] float32 (x, y)
-    fmap: torch.Tensor,  # [H, W] uint8 focus map
+    fmap: torch.Tensor,  # [hb, W] uint8 focus map of the block's rows
     decode: torch.Tensor,  # [256] float32 focus value of each byte
+    row_start: int = 0,
+    row_count: int | None = None,
 ) -> torch.Tensor:
-    """Every image gathered at its pixel's focus -> [G, C, H, W] uint8.
+    """Every image gathered at its pixel's focus, for the rows of the block
+    (module docstring) -> [G, C, hb, W] uint8.
 
     The coordinate is the oracle's ``trunc(f32(q) + f32(f*o))``
     (``reference.blend_allfocus``): a rounded product, then a rounded add
     (eager torch rounds each op), truncated toward zero, clamped. One image
-    at a time, so the temporaries stay [H, W].
+    at a time, so the temporaries stay [hb, W].
     """
     g, c, h, w = images.shape
+    r0, hb = row_block(h, row_start, row_count)
+    if tuple(fmap.shape) != (hb, w):
+        raise ValueError(f"the map of rows [{r0}, {r0 + hb}) must be [{hb}, {w}], "
+                         f"got {tuple(fmap.shape)}")
     dev = images.device
-    f = decode.to(dev)[fmap.to(torch.int64)]  # [H, W] float32
-    ys = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    f = decode.to(dev)[fmap.to(torch.int64)]  # [hb, W] float32
+    ys = torch.arange(r0, r0 + hb, device=dev, dtype=torch.float32)[:, None]
     xs = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
     off = offsets.to(device=dev, dtype=torch.float32)
-    out = torch.empty_like(images)
+    out = torch.empty((g, c, hb, w), dtype=images.dtype, device=dev)
     for i in range(g):
         cy = torch.trunc(ys + f * off[i, 1]).clamp_(0, h - 1).to(torch.int64)
         cx = torch.trunc(xs + f * off[i, 0]).clamp_(0, w - 1).to(torch.int64)
@@ -121,11 +153,15 @@ def render_allfocus(
     images: torch.Tensor,  # [G, C, H, W] uint8
     weights: torch.Tensor,  # [V, G] float32 (fp16-quantized for parity)
     offsets: torch.Tensor,  # [G, 2] float32 (x, y)
-    fmap: torch.Tensor,  # [H, W] uint8 focus map
+    fmap: torch.Tensor,  # [hb, W] uint8 focus map of the block's rows
     decode: torch.Tensor,  # [256] float32
+    row_start: int = 0,
+    row_count: int | None = None,
 ) -> torch.Tensor:
-    """All-in-focus blend: per-pixel-focus select + blend -> [V, C, H, W] uint8."""
-    return blend(allfocus_selected(images, offsets, fmap, decode), weights)
+    """All-in-focus blend of a block of rows: per-pixel-focus select +
+    blend -> [V, C, hb, W] uint8."""
+    return blend(allfocus_selected(images, offsets, fmap, decode, row_start,
+                                   row_count), weights)
 
 
 def exact_sums(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,14 @@ with ``pres``), the plain version. ``focus_estimate_pyramid`` drives the
 coarse-to-fine estimate: the coarse pass on the exact rule, the presence
 words in torch ops, the refine on the predicated instantiation.
 
+An estimate may compute a block of rows, ``row_start`` and ``row_count``
+(one rank's rows of a multi-GPU render; not the presence-predicated refine
+pass, which takes the whole frame): both passes then cover only those
+rows (the map pass their extended rows), with the frame's coordinates and
+the frame's clean flags sliced to the block, and the map is ``[hb, W]``,
+bit-equal to the same rows of the whole-frame estimate. The RGBx copy holds
+the full frame of the focus views. The defaults estimate the frame.
+
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernels, or raises. No path falls back
 from one to the other.
@@ -41,6 +49,7 @@ import torch
 
 from ..state import FocusTables
 from . import focus_torch
+from .blend_torch import row_block
 from .estimate_geometry import Pyramid
 
 #: Estimates run on the CUDA kernels since import (or since a caller reset
@@ -150,9 +159,11 @@ def map_chunk(h: int, w: int, radius: tuple[int, int], steps: int) -> int:
 
 class _Passes:
     """One estimate's operands and scratch on a CUDA device, and its two
-    passes. The caller holds ``torch.cuda.device(device)``."""
+    passes over rows [r0, r0 + hb). The caller holds
+    ``torch.cuda.device(device)``."""
 
-    def __init__(self, selected, sel_offsets, tables: FocusTables, radius):
+    def __init__(self, selected, sel_offsets, tables: FocusTables, radius,
+                 r0: int = 0, hb: int | None = None):
         from . import _build
 
         self.lib = lib = _build.load()
@@ -170,26 +181,27 @@ class _Passes:
             )
         dev = selected.device
         rx, ry = int(radius[0]), int(radius[1])
-        self.dims = (k, h, w, s, rx, ry)
+        hb = h - r0 if hb is None else hb
+        self.dims = (k, h, w, s, rx, ry, r0, hb)
         self.offsets = sel_offsets.contiguous()
         self.cands = tables.candidates.contiguous()
         self.cand_bytes = tables.candidate_bytes.contiguous()
         self.words = rgbx(selected)
-        self.chunk = map_chunk(h, w, radius, s)
-        self.maps = torch.empty((self.chunk, h + 2 * ry, w + 2 * rx),
+        self.chunk = map_chunk(hb, w, radius, s)
+        self.maps = torch.empty((self.chunk, hb + 2 * ry, w + 2 * rx),
                                 dtype=torch.uint8, device=dev)
-        self.best = (torch.empty((h, w), dtype=torch.int32, device=dev)
+        self.best = (torch.empty((hb, w), dtype=torch.int32, device=dev)
                      if self.chunk < s else None)
-        self.out = torch.empty((h, w), dtype=torch.uint8, device=dev)
+        self.out = torch.empty((hb, w), dtype=torch.uint8, device=dev)
         self.stream = torch.cuda.current_stream(dev).cuda_stream
 
     def map_pass(self, c0: int, n: int) -> None:
         """The maps of candidates [c0, c0 + n) into ``self.maps[:n]``."""
-        k, h, w, _, rx, ry = self.dims
+        k, h, w, _, rx, ry, r0, hb = self.dims
         _launched(self.lib, "lfi_focus_cheby_map", self.lib.lfi_focus_cheby_map(
             self.words.data_ptr(), self.offsets.data_ptr(),
             self.cands.data_ptr() + 4 * c0, self.maps.data_ptr(), k, h, w, n,
-            rx, ry, self.stream))
+            rx, ry, r0, hb, self.stream))
 
     def argmin_pass(self, c0: int, n: int, flags=None, pres=None, plan=None) -> None:
         """Candidates [c0, c0 + n) against each pixel's running best; the
@@ -204,7 +216,7 @@ class _Passes:
         else:
             _launched(self.lib, "lfi_focus_estimate_pres",
                       self.lib.lfi_focus_estimate_pres(
-                          *head, pres.data_ptr(), self.out.data_ptr(), *self.dims,
+                          *head, pres.data_ptr(), self.out.data_ptr(), *self.dims[:6],
                           c0, n, plan.tb, plan.wco, plan.sc, plan.nb, plan.n_wc,
                           pres.shape[2], self.stream))
 
@@ -223,7 +235,8 @@ class _Passes:
 
 
 def _flag_bytes(flags, steps: int, h: int, w: int, device):
-    """(row_clean [S, H], col_clean [S, W]) as contiguous byte tensors."""
+    """(row_clean [S, h], col_clean [S, W]) as contiguous byte tensors (h:
+    the rows of the block)."""
     rows, cols = flags
     if (tuple(rows.shape) != (steps, h) or tuple(cols.shape) != (steps, w)
             or rows.dtype != torch.bool or cols.dtype != torch.bool
@@ -243,12 +256,16 @@ def focus_estimate(
     exact_taps: bool = True,
     pres: torch.Tensor | None = None,  # [NB, N_WC, CC] int32 presence words
     plan: Pyramid | None = None,  # the grain of `pres`
+    row_start: int = 0,
+    row_count: int | None = None,
 ) -> torch.Tensor:
-    """Focus map -> [H, W] uint8 (kernels on CUDA tensors).
+    """Focus map of rows [row_start, row_start + row_count) -> [hb, W]
+    uint8 (kernels on CUDA tensors; the defaults: the frame).
 
     With `pres` (and its `plan`), the exact-taps search over each block's
     present candidates only: the pyramid's refine pass."""
-    return _estimate(selected, sel_offsets, tables, radius, exact_taps, pres, plan)
+    return _estimate(selected, sel_offsets, tables, radius, exact_taps, pres, plan,
+                     row_start=row_start, row_count=row_count)
 
 
 def focus_estimate_flagged(
@@ -268,32 +285,38 @@ def focus_estimate_flagged(
 
 
 def _estimate(selected, sel_offsets, tables, radius, exact_taps, pres, plan,
-              flags=None) -> torch.Tensor:
+              flags=None, row_start=0, row_count=None) -> torch.Tensor:
     _check(selected, sel_offsets, tables, radius)
     s = tables.candidates.shape[0]
     h, w = selected.shape[2:]
+    r0, hb = row_block(h, row_start, row_count)
     if pres is not None:
         if not exact_taps or plan is None:
             raise ValueError("presence words need exact taps and their plan")
+        if (r0, hb) != (0, h):
+            raise ValueError("the presence-predicated estimate takes the whole frame")
         _check_pres(pres, plan, selected, s)
     if flags is not None:
-        flags = _flag_bytes(flags, s, h, w, selected.device)
+        flags = _flag_bytes(flags, s, hb, w, selected.device)
     if selected.device.type == "cpu":
         if pres is not None:
             return focus_torch.estimate_presence(
                 selected, sel_offsets, tables, radius, pres, plan)
         return focus_estimate_reference(
-            selected, sel_offsets, tables, radius, exact_taps
-        )
+            selected, sel_offsets, tables, radius, exact_taps, row_start=r0,
+            row_count=hb)
     if selected.device.type != "cuda":
         raise ValueError(f"focus_estimate runs on cpu or cuda, not {selected.device}")
 
     with torch.cuda.device(selected.device):
-        passes = _Passes(selected, sel_offsets, tables, radius)
+        passes = _Passes(selected, sel_offsets, tables, radius, r0, hb)
         if exact_taps and flags is None:
-            flags = lambda: _flag_bytes(
-                focus_torch.clean_flags(sel_offsets, tables, radius, h, w),
-                s, h, w, selected.device)
+            def flags():
+                # the frame's flags, sliced to the block: flags of the block
+                # alone would be those of rows [0, hb)
+                rows, cols = focus_torch.clean_flags(sel_offsets, tables, radius, h, w)
+                return _flag_bytes((rows[:, r0:r0 + hb], cols), s, hb, w,
+                                   selected.device)
         out = passes.run(flags, None if pres is None else pres.contiguous(), plan)
     launches["pyramid" if pres is not None else
              "exact" if exact_taps else "fast"] += 1
@@ -305,17 +328,21 @@ def cheby_maps(
     sel_offsets: torch.Tensor,  # [K, 2] float32 (x, y)
     tables: FocusTables,
     radius: tuple[int, int],
+    row_start: int = 0,
+    row_count: int | None = None,
 ) -> torch.Tensor:
-    """The map pass alone -> [S, H + 2*ry, W + 2*rx] uint8, every
-    candidate's ``focus_torch.cheby_map`` (which a CPU tensor takes)."""
+    """The map pass alone -> [S, hb + 2*ry, W + 2*rx] uint8, every
+    candidate's ``focus_torch.cheby_map`` (which a CPU tensor takes) on
+    the block's extended rows."""
     _check(selected, sel_offsets, tables, radius)
+    r0, hb = row_block(selected.shape[2], row_start, row_count)
     if selected.device.type == "cpu":
-        return torch.stack([focus_torch.cheby_map(selected, sel_offsets, f, radius)
+        return torch.stack([focus_torch.cheby_map(selected, sel_offsets, f, radius, r0, hb)
                             for f in tables.candidates])
     if selected.device.type != "cuda":
         raise ValueError(f"cheby_maps runs on cpu or cuda, not {selected.device}")
     with torch.cuda.device(selected.device):
-        passes = _Passes(selected, sel_offsets, tables, radius)
+        passes = _Passes(selected, sel_offsets, tables, radius, r0, hb)
         out = []
         for c0 in range(0, passes.dims[3], passes.chunk):
             n = min(passes.chunk, passes.dims[3] - c0)

@@ -20,9 +20,17 @@ C truncation is evaluated:
 Likewise in x. ``f*o`` and the add are two separately rounded f32 ops
 (eager torch rounds each op on its own), and the candidate values and their
 map bytes come from the host tables (``state.focus_tables``), so no
-division runs here. The JAX package's pads, row blocks, slabs, tap dtypes,
-select modes and FMA/divide barriers were TPU artefacts: a clamped index
-replaces the pad.
+division runs here. The JAX package's pads, slabs, tap dtypes, select
+modes and FMA/divide barriers were TPU artefacts: a clamped index replaces
+the pad.
+
+Row blocks: the estimates and ``cheby_map`` take ``row_start`` and
+``row_count`` (one rank's rows of a multi-GPU render, ``parallel/mesh.py``)
+and compute only those rows of the map, with the frame's coordinates and
+clamps, so a block equals the same rows of the whole-frame map. The exact
+rule's clean flags are the frame's, sliced to the block: flags computed for
+the block alone would describe rows 0..hb, not the block's rows.
+``filter_focus_map_block`` filters a block of rows of the full map.
 
 ``estimate_pyramid`` is the approximate coarse-to-fine estimate
 (``--focus-pyramid``): a half-resolution sweep, then a full-resolution
@@ -36,17 +44,18 @@ from __future__ import annotations
 import torch
 
 from ..state import FocusTables
+from .blend_torch import row_block
 from .estimate_geometry import Pyramid
 
 
 def _taps(
-    q: torch.Tensor,  # [N] float32 pixel coordinates 0..N-1
+    q: torch.Tensor,  # [N] float32 pixel coordinates
     shift: torch.Tensor,  # [K] float32, f * o_k
     s: int,  # stencil offset
     exact: bool,
+    n: int,  # the frame's size along this axis: taps clamp to [0, n)
 ) -> torch.Tensor:
     """[K, N] int64 clamped tap coordinates of one stencil offset."""
-    n = q.shape[0]
     if exact:
         t = torch.trunc(q[None, :] + shift[:, None]) + s
     else:
@@ -60,22 +69,26 @@ def candidate_cost(
     f: torch.Tensor,  # 0-d float32, the candidate
     radius: tuple[int, int],  # (rx, ry)
     exact_taps: bool,
+    row_start: int = 0,
+    row_count: int | None = None,
 ) -> torch.Tensor:
-    """[H, W] int32 cost of one candidate: the sum over the 3x3 stencil of
-    ``max_c(max_k - min_k)`` at the taps of the chosen rule."""
+    """[hb, W] int32 cost of one candidate on a block of rows: the sum over
+    the 3x3 stencil of ``max_c(max_k - min_k)`` at the taps of the chosen
+    rule."""
     k, c, h, w = selected.shape
+    r0, hb = row_block(h, row_start, row_count)
     dev = selected.device
     rx, ry = int(radius[0]), int(radius[1])
-    ys = torch.arange(h, device=dev, dtype=torch.float32)
+    ys = torch.arange(r0, r0 + hb, device=dev, dtype=torch.float32)
     xs = torch.arange(w, device=dev, dtype=torch.float32)
     ki = torch.arange(k, device=dev)[:, None, None, None]
     ci = torch.arange(c, device=dev)[None, :, None, None]
     fy, fx = f * offsets[:, 1], f * offsets[:, 0]  # [K], rounded f32
-    cost = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    cost = torch.zeros((hb, w), dtype=torch.int32, device=dev)
     for sy in (-ry, 0, ry):
-        rows = _taps(ys, fy, sy, exact_taps)[:, None, :, None]
+        rows = _taps(ys, fy, sy, exact_taps, h)[:, None, :, None]
         for sx in (-rx, 0, rx):
-            cols = _taps(xs, fx, sx, exact_taps)[:, None, None, :]
+            cols = _taps(xs, fx, sx, exact_taps, w)[:, None, None, :]
             mn, mx = torch.aminmax(selected[ki, ci, rows, cols], dim=0)
             cost += (mx.to(torch.int32) - mn.to(torch.int32)).amax(dim=0)
     return cost
@@ -103,20 +116,24 @@ def estimate_focus_map(
     tables: FocusTables,  # candidates [S] f32, candidate_bytes [S] u8
     radius: tuple[int, int],  # (rx, ry)
     exact_taps: bool = True,
-    present: torch.Tensor | None = None,  # [S, H, W] bool
+    present: torch.Tensor | None = None,  # [S, hb, W] bool
+    row_start: int = 0,
+    row_count: int | None = None,
 ) -> torch.Tensor:
-    """Disparity-search focus map -> [H, W] uint8 (the winning candidate's
-    byte from ``tables.candidate_bytes``).
+    """Disparity-search focus map of a block of rows (module docstring;
+    the defaults: the frame) -> [hb, W] uint8, the winning candidate's byte
+    from ``tables.candidate_bytes``.
 
     `present` restricts each pixel's search to its present candidates: a
     candidate that is not present never updates the pixel's best
     (``focus.py:377-385``); a pixel with none keeps candidate 0."""
     dev = selected.device
+    r0, hb = row_block(selected.shape[2], row_start, row_count)
     candidates = tables.candidates.to(device=dev, dtype=torch.float32)
     offsets = sel_offsets.to(device=dev, dtype=torch.float32)
-    costs = (candidate_cost(selected, offsets, f, radius, exact_taps)
+    costs = (candidate_cost(selected, offsets, f, radius, exact_taps, r0, hb)
              for f in candidates)
-    return _argmin_bytes(costs, tables, selected.shape[2:], dev, present)
+    return _argmin_bytes(costs, tables, (hb, selected.shape[3]), dev, present)
 
 
 # The hoisted formulation, which the estimate kernel runs: one min/max pass
@@ -145,22 +162,26 @@ def cheby_map(
     sel_offsets: torch.Tensor,  # [K, 2] float32 (x, y)
     f: torch.Tensor,  # 0-d float32, the candidate
     radius: tuple[int, int],  # (rx, ry)
+    row_start: int = 0,
+    row_count: int | None = None,
 ) -> torch.Tensor:
-    """D_f on the extended domain -> [H + 2*ry, W + 2*rx] uint8; element
-    [qy + ry, qx + rx] is the Chebyshev spread at pixel (qy, qx)."""
+    """D_f on the extended domain of a block of rows -> [hb + 2*ry,
+    W + 2*rx] uint8; element [qy - r0 + ry, qx + rx] is the Chebyshev spread
+    at pixel (qy, qx) of the frame."""
     k, c, h, w = selected.shape
+    r0, hb = row_block(h, row_start, row_count)
     dev = selected.device
     rx, ry = int(radius[0]), int(radius[1])
     f = torch.as_tensor(f, dtype=torch.float32, device=dev)
     offsets = sel_offsets.to(device=dev, dtype=torch.float32)
 
-    def coords(lo: int, n: int, r: int, shift: torch.Tensor) -> torch.Tensor:
+    def coords(lo: int, n: int, r: int, size: int, shift: torch.Tensor) -> torch.Tensor:
         q = torch.arange(lo - r, lo + n + r, device=dev, dtype=torch.float32)
         t = torch.trunc(q[None, :] + shift[:, None])
-        return t.clamp_(0, n - 1).to(torch.int64)
+        return t.clamp_(0, size - 1).to(torch.int64)
 
-    rows = coords(0, h, ry, f * offsets[:, 1])[:, None, :, None]
-    cols = coords(0, w, rx, f * offsets[:, 0])[:, None, None, :]
+    rows = coords(r0, hb, ry, h, f * offsets[:, 1])[:, None, :, None]
+    cols = coords(0, w, rx, w, f * offsets[:, 0])[:, None, None, :]
     ki = torch.arange(k, device=dev)[:, None, None, None]
     ci = torch.arange(c, device=dev)[None, :, None, None]
     mn, mx = torch.aminmax(selected[ki, ci, rows, cols], dim=0)
@@ -229,28 +250,41 @@ def estimate_hoisted(
     tables: FocusTables,
     radius: tuple[int, int],
     exact_taps: bool = True,
+    row_start: int = 0,
+    row_count: int | None = None,
+    flags: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """``estimate_focus_map`` by the hoisted formulation -> [H, W] uint8,
-    bit-equal to it for both tap rules: the plain statement of what the
-    estimate kernel computes."""
+    """``estimate_focus_map`` by the hoisted formulation -> [hb, W] uint8,
+    bit-equal to it for both tap rules and any block of rows: the plain
+    statement of what the estimate kernels compute.
+
+    The exact rule takes the frame's ``clean_flags`` sliced to the block,
+    or the caller's `flags` (row_clean [S, hb], col_clean [S, W]) in their
+    place: for tests, which show what wrong flags do."""
     h, w = selected.shape[2:]
+    r0, hb = row_block(h, row_start, row_count)
     dev = selected.device
     candidates = tables.candidates.to(device=dev, dtype=torch.float32)
     offsets = sel_offsets.to(device=dev, dtype=torch.float32)
     if exact_taps:
-        row_clean, col_clean = clean_flags(offsets, tables, radius, h, w)
+        if flags is None:
+            row_clean, col_clean = clean_flags(offsets, tables, radius, h, w)
+            row_clean = row_clean[:, r0:r0 + hb]
+        else:
+            row_clean, col_clean = flags
 
     def costs():
         for i, f in enumerate(candidates):
-            cost = hoisted_cost(cheby_map(selected, offsets, f, radius), h, w, radius)
+            d = cheby_map(selected, offsets, f, radius, r0, hb)
+            cost = hoisted_cost(d, hb, w, radius)
             if exact_taps:
                 clean = row_clean[i][:, None] & col_clean[i][None, :]
                 if not bool(clean.all()):
-                    cost = torch.where(
-                        clean, cost, candidate_cost(selected, offsets, f, radius, True))
+                    cost = torch.where(clean, cost, candidate_cost(
+                        selected, offsets, f, radius, True, r0, hb))
             yield cost
 
-    return _argmin_bytes(costs(), tables, (h, w), dev)
+    return _argmin_bytes(costs(), tables, (hb, w), dev)
 
 
 def presence_from_coarse(coarse: torch.Tensor, plan: Pyramid, steps: int) -> torch.Tensor:
@@ -345,21 +379,37 @@ def filter_focus_map(focus_map: torch.Tensor, radius: tuple[int, int]) -> torch.
     (``reference.focus_map_filter``), the sum divided in f32 by 4*rx*ry and
     rounded half away from zero. A radius of 0 copies the map.
     """
+    return filter_focus_map_block(focus_map, radius, 0, focus_map.shape[0])
+
+
+def filter_focus_map_block(
+    focus_map: torch.Tensor,  # [H, W] uint8, the FULL map
+    radius: tuple[int, int],
+    row_start: int,
+    row_count: int,
+) -> torch.Tensor:
+    """Rows [row_start, row_start + row_count) of ``filter_focus_map`` of
+    the full map -> [row_count, W] uint8, bit-equal to the whole-frame
+    filter followed by a slice (``focus.filter_focus_map_block``,
+    ``focus.py:424-450``). The window crosses the block's edges by ry rows,
+    so a rank of a multi-GPU render gathers the full map first; only the
+    block's window of it, rows [r0 - ry, r0 + hb + ry) clamped, is summed."""
     rx, ry = int(radius[0]), int(radius[1])
-    if rx == 0 or ry == 0:
-        return focus_map.clone()
     h, w = focus_map.shape
+    r0, hb = row_block(h, row_start, row_count)
+    if rx == 0 or ry == 0:
+        return focus_map[r0:r0 + hb].clone()
     dev = focus_map.device
-    rows = torch.arange(-ry, h + ry, device=dev).clamp_(0, h - 1)
+    rows = torch.arange(r0 - ry, r0 + hb + ry, device=dev).clamp_(0, h - 1)
     cols = torch.arange(-rx, w + rx, device=dev).clamp_(0, w - 1)
     padded = focus_map[rows[:, None], cols[None, :]].to(torch.int64)
     ii = torch.nn.functional.pad(padded.cumsum(0).cumsum(1), (1, 0, 1, 0))
-    # the window of pixel (y, x) is padded[y : y+2ry, x : x+2rx]
+    # the window of block row y (frame row r0 + y) is padded[y : y+2ry, x : x+2rx]
     s = (
-        ii[2 * ry : 2 * ry + h, 2 * rx : 2 * rx + w]
-        - ii[0:h, 2 * rx : 2 * rx + w]
-        - ii[2 * ry : 2 * ry + h, 0:w]
-        + ii[0:h, 0:w]
+        ii[2 * ry : 2 * ry + hb, 2 * rx : 2 * rx + w]
+        - ii[0:hb, 2 * rx : 2 * rx + w]
+        - ii[2 * ry : 2 * ry + hb, 0:w]
+        + ii[0:hb, 0:w]
     )
     # A tensor divisor: CUDA torch turns division by a host scalar into a
     # multiply by its reciprocal, which is not correctly rounded.

@@ -8,6 +8,11 @@ the padded shift does not take), called from
 
     out[v,c,y,x] = u8(clip(rint(sum_g W[v,g] * img[g,c,clamp(y+dy_g),clamp(x+dx_g)])))
 
+A launch may render a block of rows, ``row_start`` and ``row_count`` (one
+rank's rows of a multi-GPU render): the kernel then computes only those
+rows, with the frame's coordinates, into ``[V, C, hb, W]``, bit-equal to the
+same rows of the whole-frame launch. The defaults render the frame.
+
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version (``shift_blend_reference``, the STD torch ops); a CUDA tensor
 launches the kernel, or raises. No path falls back from one to the other.
@@ -50,10 +55,11 @@ def is_available() -> bool:
 
 
 def shift_blend_reference(
-    images: torch.Tensor, weights: torch.Tensor, shifts: torch.Tensor
+    images: torch.Tensor, weights: torch.Tensor, shifts: torch.Tensor,
+    row_start: int = 0, row_count: int | None = None,
 ) -> torch.Tensor:
     """The plain PyTorch version of the kernel (any device)."""
-    return blend_torch.blend(blend_torch.shift_stack(images, shifts), weights)
+    return blend_torch.render_fixed(images, weights, shifts, row_start, row_count)
 
 
 def check_operands(images: torch.Tensor, weights: torch.Tensor,
@@ -102,14 +108,18 @@ def shift_blend(
     shifts: torch.Tensor,  # [G, 2] int32 (dx, dy)
     *,
     streamed: bool = False,
+    row_start: int = 0,
+    row_count: int | None = None,
 ) -> torch.Tensor:
-    """Fixed-focus render -> [V, C, H, W] uint8 (kernel on CUDA tensors).
+    """Fixed-focus render of rows [row_start, row_start + row_count) ->
+    [V, C, hb, W] uint8 (kernel on CUDA tensors; the defaults: the frame).
     The weights must be fp16-valued (see the module's docstring).
     `streamed` counts the launch as a stream's (``stream_launches``)."""
     global launches, stream_launches
     check_operands(images, weights, shifts)
+    r0, hb = blend_torch.row_block(images.shape[2], row_start, row_count)
     if images.device.type == "cpu":
-        return shift_blend_reference(images, weights, shifts)
+        return shift_blend_reference(images, weights, shifts, r0, hb)
     if images.device.type != "cuda":
         raise ValueError(f"shift_blend runs on cpu or cuda, not {images.device}")
 
@@ -125,11 +135,11 @@ def shift_blend(
         )
     clipped = clip_shifts(shifts, h, w)
     with torch.cuda.device(images.device):
-        out = torch.empty((v, c, h, w), dtype=torch.uint8, device=images.device)
+        out = torch.empty((v, c, hb, w), dtype=torch.uint8, device=images.device)
         stream = torch.cuda.current_stream(images.device).cuda_stream
         err = lib.lfi_shift_blend(
             images.data_ptr(), weights.data_ptr(), clipped.data_ptr(),
-            out.data_ptr(), g, c, h, w, v, stream,
+            out.data_ptr(), g, c, h, w, v, r0, hb, stream,
         )
     if err != 0:
         raise RuntimeError(

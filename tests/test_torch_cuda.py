@@ -13,7 +13,10 @@ neighbours) and differ by at most 1 LSB; kernel against kernel (streams,
 view batches, batched trajectories, quilt tiles) stays bit-equal.
 
 Each test takes the `cuda_device` fixture, which skips without a card.
-This file imports no jax, so it also runs on a GPU host that has none:
+Since the multi-GPU slice every kernel on a rank's path also renders a
+block of rows (``row_start``/``row_count``): the block is torch.equal to
+the same rows of the whole-frame launch. This file imports no jax, so it
+also runs on a GPU host that has none:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -790,3 +793,113 @@ def test_forced_view_batches_on_cuda_equal_unbatched(method, focus_range, cuda_d
         np.testing.assert_array_equal(out.maps, ref.maps)
     elif method == "TEN":
         _one_lsb(out.views, reference.blend_fixed(images, wm, fo))
+
+
+# -- row blocks: one rank's rows of a multi-GPU render -----------------------
+
+ROW_H = 270  # two blocks of 135 rows (1080 over 8 space ranks)
+
+
+def _row_blocks(h):
+    """(r0, hb) for hb = 1, 7, 135 and the frame, r0 at the top, in the
+    middle and at the bottom."""
+    out = [(0, h)]
+    for hb in (1, 7, 135):
+        out += [(0, hb), ((h - hb) // 2, hb), (h - hb, hb)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("focus", [0.25, 4.0], ids=["f0.25", "f4"])
+def test_shift_blend_row_blocks_equal_the_frame(focus, cuda_device):
+    images, wm, fo = _scene(4, 4, ROW_H, 150, 24, focus)
+    args = to_device_state(images, wm, fo, cuda_device)
+    whole = shift_blend.shift_blend(*args)
+    stack = blend_torch.shift_stack(args[0], args[2])
+    for r0, hb in _row_blocks(ROW_H):
+        before = shift_blend.launches
+        got = shift_blend.shift_blend(*args, row_start=r0, row_count=hb)
+        torch.cuda.synchronize()
+        assert shift_blend.launches == before + 1
+        assert got.shape == (24, 3, hb, 150)
+        assert torch.equal(got, whole[:, :, r0:r0 + hb]), (r0, hb)
+        _near_tie(got, stack[:, :, r0:r0 + hb], args[1])
+        _one_lsb(got, shift_blend.shift_blend_reference(*args, r0, hb))
+
+
+@pytest.mark.cuda
+def test_quilt_instantiation_is_unchanged_by_row_blocks(cuda_device):
+    images, wm, fo = _scene(4, 4, ROW_H, 150, 64, 0.25)
+    args = to_device_state(images, wm, fo, cuda_device)
+    canvas = quilt.quilt_blend(*args, 5, 9)
+    rows = [shift_blend.shift_blend(*args, row_start=r0, row_count=135) for r0 in (0, 135)]
+    assert torch.equal(canvas, quilt_torch.montage(torch.cat(rows, dim=2), 5, 9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "estimated"])
+def test_allfocus_blend_row_blocks_equal_the_frame(kind, cuda_device):
+    images, wm, fo = _scene(4, 4, ROW_H, 150, 24, 0.0)
+    args = to_device_state(images, wm, fo, cuda_device)
+    imgs, weights = args[0], args[1]
+    se = geometry.parse_trajectory("0,0,1,1", (4, 4))
+    offsets = _t(geometry.compute_offsets(4, 4, 150, ROW_H, 1.0,
+                                          geometry.trajectory_center(se)), cuda_device)
+    tables = _tables(-0.2, 0.9, 8, cuda_device)
+    if kind == "random":
+        rng = np.random.default_rng(1)
+        fmap = tables.candidate_bytes[_t(rng.integers(0, 8, (ROW_H, 150)), cuda_device)]
+    else:
+        fmap = focus_estimate.focus_estimate(imgs[:8], offsets[:8], tables, (4, 3))
+    whole = allfocus_blend.allfocus_blend(imgs, weights, offsets, fmap, tables.decode)
+    selected = blend_torch.allfocus_selected(imgs, offsets, fmap, tables.decode)
+    for r0, hb in _row_blocks(ROW_H):
+        block = fmap[r0:r0 + hb].contiguous()
+        before = allfocus_blend.launches
+        got = allfocus_blend.allfocus_blend(imgs, weights, offsets, block, tables.decode,
+                                            r0, hb)
+        torch.cuda.synchronize()
+        assert allfocus_blend.launches == before + 1
+        assert torch.equal(got, whole[:, :, r0:r0 + hb]), (r0, hb)
+        _near_tie(got, selected[:, :, r0:r0 + hb], weights)
+        _one_lsb(got, allfocus_blend.allfocus_blend_reference(
+            imgs, weights, offsets, block, tables.decode, r0, hb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
+@pytest.mark.parametrize("radius", [(4, 3), (6, 10)], ids=["r4x3", "r6x10"])
+def test_estimate_row_blocks_equal_the_frame(radius, exact, cuda_device):
+    images, offsets, ids = _estimate_case(4, 4, ROW_H, 150, 8, 8, 0.1, 0.4, radius)
+    selected = _t(images[ids][..., :3].transpose(0, 3, 1, 2), cuda_device)
+    sel_off, tables = _t(offsets[ids], cuda_device), _tables(0.1, 0.4, 8, cuda_device)
+    whole = focus_estimate.focus_estimate(selected, sel_off, tables, radius, exact)
+    maps = focus_estimate.cheby_maps(selected, sel_off, tables, radius)
+    rule = "exact" if exact else "fast"
+    for r0, hb in _row_blocks(ROW_H):
+        before = focus_estimate.launches[rule]
+        got = focus_estimate.focus_estimate(selected, sel_off, tables, radius, exact,
+                                            row_start=r0, row_count=hb)
+        torch.cuda.synchronize()
+        assert focus_estimate.launches[rule] == before + 1
+        assert torch.equal(got, whole[r0:r0 + hb]), (r0, hb)
+        assert torch.equal(got, focus_estimate.focus_estimate_reference(
+            selected, sel_off, tables, radius, exact, row_start=r0, row_count=hb))
+        got_maps = focus_estimate.cheby_maps(selected, sel_off, tables, radius, r0, hb)
+        assert torch.equal(got_maps, maps[:, r0:r0 + hb + 2 * radius[1]]), (r0, hb)
+
+
+@pytest.mark.cuda
+def test_row_blocks_past_the_frame_raise(cuda_device):
+    from lfinterpolator_tpu_torch.ops import _build
+
+    images, wm, fo = _scene(2, 2, 20, 40, 4, 0.1)
+    args = to_device_state(images, wm, fo, cuda_device)
+    with pytest.raises(ValueError, match="row block"):
+        shift_blend.shift_blend(*args, row_start=15, row_count=7)
+    lib = _build.load()
+    out = torch.empty((4, 3, 7, 40), dtype=torch.uint8, device=cuda_device)
+    err = lib.lfi_shift_blend(args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
+                              out.data_ptr(), 4, 3, 20, 40, 4, 15, 7,
+                              torch.cuda.current_stream().cuda_stream)
+    assert err == 1  # cudaErrorInvalidValue: nothing launched

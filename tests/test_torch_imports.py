@@ -31,8 +31,8 @@ def _fake_nvcc(directory, body: str) -> str:
 
 
 def test_package_imports_no_jax_and_builds_nothing(tmp_path):
-    """A walk through every entry point and script on the CPU: no jax, no
-    module of the JAX package, no nvcc."""
+    """A walk through every entry point and script on the CPU, a world-1
+    gloo mesh included: no jax, no module of the JAX package, no nvcc."""
     marker = tmp_path / "nvcc_ran"
     bindir = tmp_path / "bin"
     bindir.mkdir()
@@ -100,6 +100,17 @@ def test_package_imports_no_jax_and_builds_nothing(tmp_path):
         sr = pkg.StreamingRenderer(2, 2, 12, 8, "0,0,1,1", device="cpu")
         frames = [rng.integers(0, 256, (4, 8, 12, 4), dtype=np.uint8)] * 2
         assert [v.shape for v in sr.render_stream(frames)] == [(64, 8, 12, 3)] * 2
+        # slice 5: a world-1 gloo mesh render
+        from lfinterpolator_tpu_torch.parallel import distributed, mesh
+        distributed.initialize("file://" + os.path.abspath("store"), 1, 0,
+                               backend="gloo", timeout_s=60)
+        interp = Interpolator(lf, device="cpu", progress=False, mesh=mesh.make_mesh(),
+                              config=pkg.RenderConfig(focus_map_views=4, focus_steps=8))
+        res = interp.interpolate("0,0,1,1", focus=0.1, focus_range=0.3,
+                                 method="TEN", progress=False)
+        assert res.views.shape == (64, 16, 512, 3) and res.maps.shape == (2, 16, 512)
+        import torch.distributed as dist
+        dist.destroy_process_group()
         bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
                or m == "lfinterpolator_tpu" or m.startswith("lfinterpolator_tpu.")]
         assert not bad, bad
