@@ -221,9 +221,10 @@ class Interpolator:
     def _plan(self, v: int, method_key: str, focus_views: int, extra: int,
               progress: bool) -> capacity.RenderPlan:
         g, c, h, w = self.images.shape
-        plan = capacity.plan_render(g, c, h, w, v, method=method_key,
-                                    focus_views=focus_views, extra=extra,
-                                    device=self.device)
+        with profiling.span("lfi.plan"):
+            plan = capacity.plan_render(g, c, h, w, v, method=method_key,
+                                        focus_views=focus_views, extra=extra,
+                                        device=self.device)
         if plan.batched and progress:
             print(f"Rendering {v} views in {-(-v // plan.view_batch)} batches "
                   f"of {plan.view_batch} (the output exceeds device memory)")
@@ -257,7 +258,8 @@ class Interpolator:
         if self.mesh is not None:
             return self._mesh_fixed_step(wm, fo, method_key, extra)
         plan = self._plan(len(wm), method_key, 0, extra, progress)
-        weights, shifts = state.upload_params(wm, fo, self.device)
+        with profiling.span("lfi.upload"):
+            weights, shifts = state.upload_params(wm, fo, self.device)
 
         def render(rows: torch.Tensor) -> torch.Tensor:
             return pipeline.render_fixed_focus(self.images, rows, shifts,
@@ -278,7 +280,8 @@ class Interpolator:
             return self._mesh_allfocus_step(params, cfg, method_key, progress, extra)
         plan = self._plan(len(params.weights), method_key, len(params.focus_ids),
                           extra, progress)
-        weights, offsets, ids, tables = state.upload_allfocus(params, self.device)
+        with profiling.span("lfi.upload"):
+            weights, offsets, ids, tables = state.upload_allfocus(params, self.device)
         if progress:
             print("Estimating focus map...")
 
@@ -355,17 +358,20 @@ class Interpolator:
         """The step of one trajectory's render (``_fixed_step`` or
         ``_allfocus_step``). `extra` bytes are held beside the render."""
         lf = self.lf
+        with profiling.span("lfi.params"):
+            if cfg.uses_focus_map:
+                params = state.allfocus_params(
+                    trajectory, cols=lf.cols, rows=lf.rows, height=lf.height,
+                    width=lf.width, config=cfg,
+                )
+            else:
+                wm, fo = state.render_params(
+                    trajectory, cols=lf.cols, rows=lf.rows, height=lf.height,
+                    width=lf.width, focus=cfg.focus, effect=cfg.effect,
+                    aspect=cfg.aspect, views=cfg.view_count,
+                )
         if cfg.uses_focus_map:
-            params = state.allfocus_params(
-                trajectory, cols=lf.cols, rows=lf.rows, height=lf.height,
-                width=lf.width, config=cfg,
-            )
             return self._allfocus_step(params, cfg, method_key, progress, extra)
-        wm, fo = state.render_params(
-            trajectory, cols=lf.cols, rows=lf.rows, height=lf.height,
-            width=lf.width, focus=cfg.focus, effect=cfg.effect,
-            aspect=cfg.aspect, views=cfg.view_count,
-        )
         return self._fixed_step(wm, fo, method_key, progress, extra)
 
     def _to_host(self, views, maps) -> tuple[np.ndarray, np.ndarray | None]:
@@ -417,14 +423,15 @@ class Interpolator:
         whose output does not fit the device runs in view batches; one
         that cannot fit even so raises before allocating.
         """
-        cfg, method_key = self._config(focus, focus_range, method, effect, aspect)
-        step = self._render_step(trajectory, cfg, method_key, progress)
-        out, run_times = self._run(step, benchmark_runs, progress)
-        views_np, maps_np = self._to_host(*self._collect(*out))
-        return RenderResult(
-            views=views_np, maps=maps_np, run_times_s=run_times, config=cfg,
-            device=str(self.device),
-        )
+        with profiling.span("lfi.interpolate"):
+            cfg, method_key = self._config(focus, focus_range, method, effect, aspect)
+            step = self._render_step(trajectory, cfg, method_key, progress)
+            out, run_times = self._run(step, benchmark_runs, progress)
+            views_np, maps_np = self._to_host(*self._collect(*out))
+            return RenderResult(
+                views=views_np, maps=maps_np, run_times_s=run_times, config=cfg,
+                device=str(self.device),
+            )
 
     def render_quilt(
         self,
@@ -456,52 +463,56 @@ class Interpolator:
         size decide. `benchmark_runs` times the whole step: render and
         assembly for the two-stage route.
         """
-        cfg, method_key = self._config(focus, focus_range, method, effect, aspect)
-        lf = self.lf
-        n = cols * rows
-        if cols < 1 or rows < 1 or cfg.view_count < n:
-            raise ValueError(
-                f"Quilt needs {n} views ({cols}x{rows}), but view_count is "
-                f"{cfg.view_count}"
+        with profiling.span("lfi.render_quilt"):
+            cfg, method_key = self._config(focus, focus_range, method, effect, aspect)
+            lf = self.lf
+            n = cols * rows
+            if cols < 1 or rows < 1 or cfg.view_count < n:
+                raise ValueError(
+                    f"Quilt needs {n} views ({cols}x{rows}), but view_count is "
+                    f"{cfg.view_count}"
+                )
+            native = tile_size is None or tuple(tile_size) == (lf.height, lf.width)
+            th, tw = (lf.height, lf.width) if native else (int(v) for v in tile_size)
+            if th < 1 or tw < 1:
+                raise ValueError(f"tile size must be positive, got {tile_size}")
+            canvas = 2 * n * 3 * th * tw  # the canvas and its [H, W, C] copy
+            fused = (self.mesh is None and not cfg.uses_focus_map
+                     and method_key == "TEN" and native)
+            if fused:
+                with profiling.span("lfi.params"):
+                    wm, fo = state.render_params(
+                        trajectory, cols=lf.cols, rows=lf.rows, height=lf.height,
+                        width=lf.width, focus=cfg.focus, effect=cfg.effect,
+                        aspect=cfg.aspect, views=cfg.view_count,
+                    )
+                with profiling.span("lfi.upload"):
+                    weights, shifts = state.upload_params(wm, fo, self.device)
+                with profiling.span("lfi.plan"):
+                    capacity.check_capacity(
+                        canvas, f"A {cols}x{rows} quilt of {lf.width}x{lf.height} tiles",
+                        device=self.device)
+
+                def step() -> torch.Tensor:
+                    return quilt.quilt_blend(self.images, weights, shifts, cols, rows)
+            else:
+                resize = 0 if native else 4 * n * 3 * (lf.height * lf.width
+                                                       + th * lf.width + th * tw)
+                render = self._render_step(trajectory, cfg, method_key, progress,
+                                           extra=canvas + resize)
+
+                def step() -> torch.Tensor:
+                    views, _ = self._collect(*render())
+                    if isinstance(views, np.ndarray):  # view batches, on the host
+                        return _assemble_host_views(views[:n], self.device, cols,
+                                                    rows, tile_size)
+                    return quilt.assemble_quilt(views, cols, rows, tile_size)
+
+            q, run_times = self._run(step, benchmark_runs, progress)
+            return QuiltResult(
+                quilt=quilt_torch.to_hwc(q).cpu().numpy(), run_times_s=run_times,
+                config=cfg, fused=fused,
             )
-        native = tile_size is None or tuple(tile_size) == (lf.height, lf.width)
-        th, tw = (lf.height, lf.width) if native else (int(v) for v in tile_size)
-        if th < 1 or tw < 1:
-            raise ValueError(f"tile size must be positive, got {tile_size}")
-        canvas = 2 * n * 3 * th * tw  # the canvas and its [H, W, C] copy
-        fused = (self.mesh is None and not cfg.uses_focus_map
-                 and method_key == "TEN" and native)
-        if fused:
-            wm, fo = state.render_params(
-                trajectory, cols=lf.cols, rows=lf.rows, height=lf.height,
-                width=lf.width, focus=cfg.focus, effect=cfg.effect,
-                aspect=cfg.aspect, views=cfg.view_count,
-            )
-            weights, shifts = state.upload_params(wm, fo, self.device)
-            capacity.check_capacity(
-                canvas, f"A {cols}x{rows} quilt of {lf.width}x{lf.height} tiles",
-                device=self.device)
-
-            def step() -> torch.Tensor:
-                return quilt.quilt_blend(self.images, weights, shifts, cols, rows)
-        else:
-            resize = 0 if native else 4 * n * 3 * (lf.height * lf.width
-                                                   + th * lf.width + th * tw)
-            render = self._render_step(trajectory, cfg, method_key, progress,
-                                       extra=canvas + resize)
-
-            def step() -> torch.Tensor:
-                views, _ = self._collect(*render())
-                if isinstance(views, np.ndarray):  # view batches, on the host
-                    return _assemble_host_views(views[:n], self.device, cols,
-                                                rows, tile_size)
-                return quilt.assemble_quilt(views, cols, rows, tile_size)
-
-        q, run_times = self._run(step, benchmark_runs, progress)
-        return QuiltResult(
-            quilt=quilt_torch.to_hwc(q).cpu().numpy(), run_times_s=run_times,
-            config=cfg, fused=fused,
-        )
 
     def interpolate_batch(
         self,
@@ -539,48 +550,50 @@ class Interpolator:
         JAX package raises ``ValueError`` from ``np.stack`` there, which no
         caller can want; the arguments are still validated.)
         """
-        cfg, method_key = self._config(focus, focus_range, method, effect, aspect)
-        lf = self.lf
-        v = cfg.view_count
-        centers = [
-            geometry.trajectory_center(geometry.parse_trajectory(t, (lf.cols, lf.rows)))
-            for t in trajectories
-        ]
-        results: list[RenderResult | None] = [None] * len(trajectories)
-        for idxs in _group_by_center(centers, center_tolerance):
-            first = trajectories[idxs[0]]
-            if cfg.uses_focus_map:
-                params = state.allfocus_params(
-                    first, cols=lf.cols, rows=lf.rows, height=lf.height,
-                    width=lf.width, config=cfg,
-                )
-            members = [
-                state.render_params(
-                    trajectories[i], cols=lf.cols, rows=lf.rows,
-                    height=lf.height, width=lf.width, focus=cfg.focus,
-                    effect=cfg.effect, aspect=cfg.aspect, views=v,
-                )
-                for i in idxs
+        with profiling.span("lfi.interpolate_batch"):
+            cfg, method_key = self._config(focus, focus_range, method, effect, aspect)
+            lf = self.lf
+            v = cfg.view_count
+            centers = [
+                geometry.trajectory_center(geometry.parse_trajectory(t, (lf.cols, lf.rows)))
+                for t in trajectories
             ]
-            big = np.concatenate([wm for wm, _ in members])  # [len(idxs) * V, G]
-            fo = members[0][1]  # the first member's shifts
-            if self.mesh is not None and len(big) % pmesh.axis_size(self.mesh, "view"):
-                raise ValueError(
-                    f"batched view count {len(big)} must divide by the mesh "
-                    f"view axis ({pmesh.axis_size(self.mesh, 'view')})"
-                )
-            if cfg.uses_focus_map:
-                step = self._allfocus_step(dataclasses.replace(params, weights=big),
-                                           cfg, method_key, progress)
-            else:
-                step = self._fixed_step(big, fo, method_key, progress)
-            views_np, maps_np = self._to_host(*self._collect(*step()))
-            for j, i in enumerate(idxs):
-                results[i] = RenderResult(
-                    views=views_np[j * v:(j + 1) * v], maps=maps_np,
-                    run_times_s=[], config=cfg, device=str(self.device),
-                )
-        return results  # type: ignore[return-value]
+            results: list[RenderResult | None] = [None] * len(trajectories)
+            for idxs in _group_by_center(centers, center_tolerance):
+                first = trajectories[idxs[0]]
+                with profiling.span("lfi.params"):
+                    if cfg.uses_focus_map:
+                        params = state.allfocus_params(
+                            first, cols=lf.cols, rows=lf.rows, height=lf.height,
+                            width=lf.width, config=cfg,
+                        )
+                    members = [
+                        state.render_params(
+                            trajectories[i], cols=lf.cols, rows=lf.rows,
+                            height=lf.height, width=lf.width, focus=cfg.focus,
+                            effect=cfg.effect, aspect=cfg.aspect, views=v,
+                        )
+                        for i in idxs
+                    ]
+                big = np.concatenate([wm for wm, _ in members])  # [len(idxs) * V, G]
+                fo = members[0][1]  # the first member's shifts
+                if self.mesh is not None and len(big) % pmesh.axis_size(self.mesh, "view"):
+                    raise ValueError(
+                        f"batched view count {len(big)} must divide by the mesh "
+                        f"view axis ({pmesh.axis_size(self.mesh, 'view')})"
+                    )
+                if cfg.uses_focus_map:
+                    step = self._allfocus_step(dataclasses.replace(params, weights=big),
+                                               cfg, method_key, progress)
+                else:
+                    step = self._fixed_step(big, fo, method_key, progress)
+                views_np, maps_np = self._to_host(*self._collect(*step()))
+                for j, i in enumerate(idxs):
+                    results[i] = RenderResult(
+                        views=views_np[j * v:(j + 1) * v], maps=maps_np,
+                        run_times_s=[], config=cfg, device=str(self.device),
+                    )
+            return results  # type: ignore[return-value]
 
 
 def interpolate(

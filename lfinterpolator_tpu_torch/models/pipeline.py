@@ -35,6 +35,7 @@ import torch
 from ..ops.estimate_geometry import Pyramid
 from ..state import FocusTables
 from ..ops import allfocus_blend, blend_torch, focus_estimate, focus_torch, shift_blend
+from ..utils import profiling
 
 
 def render_fixed_focus(
@@ -48,11 +49,12 @@ def render_fixed_focus(
 ) -> torch.Tensor:
     """Fixed-focus render of a block of rows -> [V, C, hb, W] uint8.
     `streamed`: a stream's frame (its kernel launch counts as the stream's)."""
-    if method == "STD":
-        return blend_torch.render_fixed(images, weights, shifts, row_start, row_count)
-    if method in ("TEN", "TEN_WM"):
-        return shift_blend.shift_blend(images, weights, shifts, streamed=streamed,
-                                       row_start=row_start, row_count=row_count)
+    with profiling.span("lfi.blend"):
+        if method == "STD":
+            return blend_torch.render_fixed(images, weights, shifts, row_start, row_count)
+        if method in ("TEN", "TEN_WM"):
+            return shift_blend.shift_blend(images, weights, shifts, streamed=streamed,
+                                           row_start=row_start, row_count=row_count)
     raise ValueError(f"unknown method {method!r}: use 'STD' or 'TEN'/'TEN_WM'")
 
 
@@ -100,9 +102,11 @@ def compute_focus_maps(
 
     `pyramid` (exact taps only) runs the approximate coarse-to-fine
     estimate instead of the full sweep."""
-    map0 = estimate_focus(images, offsets, focus_ids, tables, radius=radius,
-                          exact_taps=exact_taps, pyramid=pyramid)
-    map1 = focus_torch.filter_focus_map(map0, filter_radius)
+    with profiling.span("lfi.estimate"):
+        map0 = estimate_focus(images, offsets, focus_ids, tables, radius=radius,
+                              exact_taps=exact_taps, pyramid=pyramid)
+    with profiling.span("lfi.filter"):
+        map1 = focus_torch.filter_focus_map(map0, filter_radius)
     return torch.stack([map0, map1])
 
 
@@ -121,8 +125,9 @@ def blend_all_focus(
     if method not in ("STD", "TEN", "TEN_WM"):
         raise ValueError(f"unknown method {method!r}: use 'STD' or 'TEN'/'TEN_WM'")
     fmap = maps[1] if method == "STD" else maps[0]
-    return allfocus_blend.allfocus_blend(images, weights, offsets, fmap, decode,
-                                         row_start, row_count)
+    with profiling.span("lfi.blend"):
+        return allfocus_blend.allfocus_blend(images, weights, offsets, fmap, decode,
+                                             row_start, row_count)
 
 
 def render_all_focus(

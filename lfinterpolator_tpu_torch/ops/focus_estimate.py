@@ -48,6 +48,7 @@ from __future__ import annotations
 import torch
 
 from ..state import FocusTables
+from ..utils import profiling
 from . import focus_torch
 from .blend_torch import row_block
 from .estimate_geometry import Pyramid
@@ -314,9 +315,10 @@ def _estimate(selected, sel_offsets, tables, radius, exact_taps, pres, plan,
             def flags():
                 # the frame's flags, sliced to the block: flags of the block
                 # alone would be those of rows [0, hb)
-                rows, cols = focus_torch.clean_flags(sel_offsets, tables, radius, h, w)
-                return _flag_bytes((rows[:, r0:r0 + hb], cols), s, hb, w,
-                                   selected.device)
+                with profiling.span("lfi.estimate.flags"):
+                    rows, cols = focus_torch.clean_flags(sel_offsets, tables, radius, h, w)
+                    return _flag_bytes((rows[:, r0:r0 + hb], cols), s, hb, w,
+                                       selected.device)
         out = passes.run(flags, None if pres is None else pres.contiguous(), plan)
     launches["pyramid" if pres is not None else
              "exact" if exact_taps else "fast"] += 1

@@ -12,8 +12,39 @@ repeats the same work.
 
 ``trace(log_dir)`` is the counterpart of the JAX module's ``trace`` (a
 ``jax.profiler`` trace): a ``torch.profiler`` trace of the block, CPU
-activity and, where a card is present, CUDA activity, written as a Chrome
-trace (``log_dir/trace.json``; chrome://tracing or Perfetto).
+activity of every thread and, where a card is present, CUDA activity,
+written as a Chrome trace (``log_dir/trace.json``; chrome://tracing or
+Perfetto).
+
+``span(name)`` marks a layer of the port in whatever torch profiler runs:
+a ``torch.profiler.record_function`` region, which the Chrome trace holds
+as a ``user_annotation`` event on the clock and timeline of the kernels and
+copies, and nothing at all (one shared no-op context) when no profiler
+runs. The port's spans, each opened where its work happens, nest by time
+on the calling thread:
+
+  lfi.interpolate        ``Interpolator.interpolate``, the whole call (also
+  lfi.render_quilt       ``render_quilt`` and
+  lfi.interpolate_batch  ``interpolate_batch``)
+  lfi.params             the host arrays of a render in NumPy
+                         (``state.render_params``, ``state.allfocus_params``)
+  lfi.plan               the capacity plan (``core/capacity.py``; it reads the
+                         device's free memory, ``cudaMemGetInfo``)
+  lfi.upload             the fp16 check of the weights and the small uploads
+                         (``state.upload_params``, ``state.upload_allfocus``)
+  lfi.estimate           the focus estimate (``pipeline.compute_focus_maps``)
+  lfi.estimate.flags     the exact rule's clean flags, in torch ops, inside
+                         the estimate's kernels (CUDA only)
+  lfi.filter             the focus map's box filter
+  lfi.blend              a blend launch (each view batch's)
+  lfi.download.start     ``transfer.Downloader.start``: the [N, C, H, W] ->
+                         [N, H, W, C] copy, the maps' clone, the pinned host
+                         memory and the enqueued copies
+  lfi.download.wait      ``transfer.Pending.wait``: the caller waiting for
+                         the copies to reach host memory
+
+The pipeline's and the download's spans open wherever those layers run (a
+stream's frames and a mesh's blocks too); the others are the API's.
 """
 
 from __future__ import annotations
@@ -108,18 +139,56 @@ def benchmark(step, *, runs: int = 100, device="cuda") -> BenchResult:
     return BenchResult(times_s=times, device=device_name(device))
 
 
+#: What ``span`` returns while no profiler runs.
+_NO_SPAN = contextlib.nullcontext()
+#: Set while a ``torch.profiler.profile`` runs, on every thread.
+_profiler_module = torch.autograd.profiler
+#: True on a thread that a profiler records (also under ``emit_nvtx``).
+_thread_recorded = torch.autograd._profiler_enabled
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` region while a torch
+    profiler runs (``torch.profiler.profile``, ``emit_nvtx``), else one
+    shared no-op context: a flag test and nothing else, so that the port's
+    spans (module docstring) cost well under a microsecond a call when
+    nobody profiles. A region on a thread the profiler does not record is
+    dropped by it."""
+    if _profiler_module._is_profiler_enabled or _thread_recorded():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def _all_threads_config():
+    """The profiler's setting that records every thread's operators and
+    spans (a stream's feeder thread, a caller's own threads), where the
+    installed torch has it; else None (the launching thread only)."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the block with ``torch.profiler`` and write its Chrome trace
-    to ``log_dir/trace.json``. Yields the profiler (``key_averages()`` for
-    the sums by operator and kernel after the block)."""
+    to ``log_dir/trace.json``: every thread's torch operators, CUDA calls
+    and the port's ``lfi.*`` spans (``span``; a call of
+    ``Interpolator.interpolate`` is an ``lfi.interpolate`` event holding its
+    parts), and with a card the kernels and copies on the same clock.
+    Yields the profiler (``key_averages()`` for the sums by operator and
+    kernel after the block)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    config = _all_threads_config()
+    kw = {} if config is None else {"experimental_config": config}
+    with profile(activities=activities, **kw) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import blend_torch
+from . import profiling
 
 
 def host_empty(shape, device) -> torch.Tensor:
@@ -48,11 +49,12 @@ class Pending:
     def wait(self):
         """-> views [N, H, W, C] uint8, or (views, maps) when the download
         carries maps."""
-        if self._event is not None:
-            self._event.synchronize()
-        self._held = None
-        views, *maps = (t.numpy() for t in self._host)
-        return (views, maps[0]) if maps else views
+        with profiling.span("lfi.download.wait"):
+            if self._event is not None:
+                self._event.synchronize()
+            self._held = None
+            views, *maps = (t.numpy() for t in self._host)
+            return (views, maps[0]) if maps else views
 
 
 class Downloader:
@@ -66,20 +68,21 @@ class Downloader:
               out: torch.Tensor | None = None) -> Pending:
         """Enqueue the download of `views` [N, C, H, W] uint8 (and `maps`),
         into `out` ([N, H, W, C] from ``host_empty``) or a new host tensor."""
-        hwc = blend_torch.from_planar(views)
-        tensors = [hwc] if maps is None else [hwc, maps.clone()]
-        if self.device.type != "cuda":
-            if out is not None:
-                tensors[0] = out.copy_(hwc)
-            return Pending(None, tensors, None)
-        host = [out if out is not None else host_empty(hwc.shape, self.device)]
-        host += [host_empty(t.shape, self.device) for t in tensors[1:]]
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self._stream):
-            for h, t in zip(host, tensors):
-                h.copy_(t, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self._stream)
-        return Pending(tensors, host, event)
+        with profiling.span("lfi.download.start"):
+            hwc = blend_torch.from_planar(views)
+            tensors = [hwc] if maps is None else [hwc, maps.clone()]
+            if self.device.type != "cuda":
+                if out is not None:
+                    tensors[0] = out.copy_(hwc)
+                return Pending(None, tensors, None)
+            host = [out if out is not None else host_empty(hwc.shape, self.device)]
+            host += [host_empty(t.shape, self.device) for t in tensors[1:]]
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self._stream):
+                for h, t in zip(host, tensors):
+                    h.copy_(t, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(self._stream)
+            return Pending(tensors, host, event)

@@ -903,3 +903,42 @@ def test_row_blocks_past_the_frame_raise(cuda_device):
                               out.data_ptr(), 4, 3, 20, 40, 4, 15, 7,
                               torch.cuda.current_stream().cuda_stream)
     assert err == 1  # cudaErrorInvalidValue: nothing launched
+
+
+@pytest.mark.cuda
+def test_spans_on_the_card_hold_the_flags_and_the_download_copy(cuda_device, tmp_path):
+    """An all-in-focus call under ``profiling.trace`` on the card: the
+    exact rule's clean flags open inside the estimate, and kernels (the
+    [N, C, H, W] -> [N, H, W, C] copy) are launched inside the download's
+    start, tied to their launches by the trace's ``correlation``."""
+    import json
+
+    from lfinterpolator_tpu_torch.api import Interpolator
+    from lfinterpolator_tpu_torch.core.config import RenderConfig
+    from lfinterpolator_tpu_torch.utils import profiling
+
+    images, _, _ = _scene(4, 4, 48, 64, 64, 0.2)
+    interp = Interpolator(LightField(images, 4, 4), config=RenderConfig(focus_map_views=8),
+                          device=cuda_device, progress=False)
+    kw = dict(focus=0.1, focus_range=0.3, method="TEN", progress=False)
+    interp.interpolate("0,0,1,1", **kw)
+    with profiling.trace(str(tmp_path)):
+        interp.interpolate("0.1,0.2,0.9,0.7", **kw)
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    spans = {e["name"]: e for e in events
+             if e.get("cat") == "user_annotation" and e["name"].startswith("lfi.")}
+    assert set(spans) == {"lfi.interpolate", "lfi.params", "lfi.plan", "lfi.upload",
+                          "lfi.estimate", "lfi.estimate.flags", "lfi.filter", "lfi.blend",
+                          "lfi.download.start", "lfi.download.wait"}
+
+    def inside(e, span):
+        return span["ts"] <= e["ts"] < span["ts"] + span["dur"]
+
+    assert inside(spans["lfi.estimate.flags"], spans["lfi.estimate"])
+    for name in ("lfi.estimate.flags", "lfi.download.start"):
+        ids = {e["args"]["correlation"] for e in events
+               if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})
+               and inside(e, spans[name])}
+        assert any(e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in ids
+                   for e in events), name

@@ -37,11 +37,21 @@ def test_timer_on_cpu_reads_the_host_clock():
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     import json
 
+    import numpy as np
+
+    from lfinterpolator_tpu_torch.api import Interpolator
+    from lfinterpolator_tpu_torch.io import LightField
+
+    images = np.random.default_rng(3).integers(0, 256, (4, 16, 24, 3), dtype=np.uint8)
+    interp = Interpolator(LightField(images, 2, 2), device="cpu", progress=False)
     with profiling.trace(str(tmp_path / "trace")) as prof:
         torch.matmul(torch.ones(16, 16), torch.ones(16, 16))
+        interp.interpolate("0,0,1,1", focus=0.1, progress=False)
     events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
     assert any("matmul" in e.get("name", "") for e in events)
     assert any("matmul" in a.key for a in prof.key_averages())
+    assert any(e.get("name") == "lfi.interpolate" and e.get("cat") == "user_annotation"
+               for e in events)
 
 
 def test_launch_counts_keep_streamed_launches_apart():
