@@ -1,10 +1,14 @@
 """Host-side geometry: trajectories, blend weights, per-image shift offsets.
 
-The port's own copy of ``lfinterpolator_tpu/core/geometry.py`` (NumPy only;
-``tests/test_torch_copies.py`` holds the two equal). Re-derives the
-reference's host math (reference: src/interpolator.cu:156-246, 318-337)
-with NumPy. All of this is tiny (O(views x grid)) and runs on the host;
-the resulting arrays feed the device kernels.
+The port's own copy of ``lfinterpolator_tpu/core/geometry.py`` (NumPy only),
+held equal to it by its outputs, not by its text: ``weight_matrix`` weighs
+every view of a trajectory in one broadcast expression where the original
+calls ``generate_weights`` once per view, with the same float32 operations
+in the same order, so the matrices are equal bit for bit
+(``tests/test_torch_copies.py``, ``tests/test_torch_weights.py``).
+Re-derives the reference's host math (reference: src/interpolator.cu:156-246,
+318-337) with NumPy. All of this is tiny (O(views x grid)) and runs on the
+host; the resulting arrays feed the device kernels.
 
 Grid convention: an image named ``a_b.ext`` is the camera at column ``a``, row
 ``b`` (the reference's help text, src/main.cpp:17). The flat image order used
@@ -91,13 +95,7 @@ def generate_weights(
     note: NOT (cols-1, rows-1)).
     Returns [G] float32 in flat order col*rows + row.
     """
-    pos = grid_positions(cols, rows)
-    max_distance = np.float32(np.hypot(np.float32(cols), np.float32(rows)))
-    dist = np.hypot(
-        coords[0].astype(np.float32) - pos[:, 0], coords[1].astype(np.float32) - pos[:, 1]
-    ).astype(np.float32)
-    w = np.power(max_distance - dist, np.float32(effect), dtype=np.float32)
-    return (w / w.sum(dtype=np.float32)).astype(np.float32)
+    return _weights(np.asarray(coords)[None, :], cols, rows, effect)[0]
 
 
 def weight_matrix(
@@ -108,10 +106,24 @@ def weight_matrix(
     Row v holds the per-image weights for trajectory point v
     (reference: src/interpolator.cu:209-224, row-major [views x gridSize]).
     """
-    traj = generate_trajectory(start_end, n_views)
-    return np.stack(
-        [generate_weights(traj[v], cols, rows, effect) for v in range(n_views)], axis=0
-    )
+    return _weights(generate_trajectory(start_end, n_views), cols, rows, effect)
+
+
+def _weights(points: np.ndarray, cols: int, rows: int, effect: float) -> np.ndarray:
+    """[V, G] float32: the weights of each of the [V, 2] points.
+
+    One broadcast expression over all points. Every float32 operation is
+    the per-point one, elementwise, and each row's sum reduces its own G
+    weights, so a row is bit for bit what one point alone would give.
+    """
+    pos = grid_positions(cols, rows)
+    max_distance = np.float32(np.hypot(np.float32(cols), np.float32(rows)))
+    points = points.astype(np.float32)
+    dist = np.hypot(
+        points[:, 0, None] - pos[:, 0], points[:, 1, None] - pos[:, 1]
+    ).astype(np.float32)
+    w = np.power(max_distance - dist, np.float32(effect), dtype=np.float32)
+    return (w / w.sum(axis=-1, keepdims=True, dtype=np.float32)).astype(np.float32)
 
 
 def quantize_weights_f16(weights: np.ndarray) -> np.ndarray:
