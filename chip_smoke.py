@@ -119,10 +119,20 @@ order; any failure raises and the script exits non-zero:
      map and views all-gathers (host clock) and max_memory_allocated
      beside the per-rank byte arithmetic; four ranks time-sharing one
      card: not a scaling measurement;
+ 33. (run after phase 32) the Interpolator on a seeded 17x17 grid of
+     1024x1024 images (289, past the reference tool's 256: both blends run
+     in passes over the images), the occlusion scene of the benchmark's
+     17x17 cells: fixed TEN at focus 0.2 and all in focus over 0.0 +- 0.07,
+     each with the launch counts reset just before it, launches and passes
+     counted (every launch all of lfi_blend_grid_passes(289)); the maps
+     equal to the plain pipeline's; each blend wrapper on the render's
+     inputs equal to the render, under the near-tie rule, at most 1 LSB
+     from its plain version, both timed;
  30. no module of jax or of the JAX package is loaded;
  31. the kernels line (each kernel's time, plain time, bound and library
      time; the launches of phases 26-29 beside the main path's, and phase
-     32's in `launches_mesh`), then the last line:
+     32's in `launches_mesh`; phase 33's two blends of 289 images, with
+     their launches and passes), then the last line:
      {"ok": true, "device": {...}}.
 
 Exits 1 at once when no CUDA device is present. Needs one GPU, no network.
@@ -182,9 +192,11 @@ def phase2_build() -> None:
     spills, mma = blend(_build.spills()), blend(_build.tensor_core_instructions())
     log(f"[2] blend kernels: spill bytes {list(spills.values())}; tensor-core "
         f"instructions (HMMA/HGMMA in cuobjdump -sass) {mma}")
-    if len(spills) != 3 or any(spills.values()):
+    # shift_blend, its quilt instantiation and allfocus_blend, each built for
+    # one pass over the images and with later passes
+    if len(spills) != 6 or any(spills.values()):
         raise AssertionError(f"a blend kernel spills registers: {spills}")
-    if len(mma) != 3 or not all(mma.values()):
+    if len(mma) != 6 or not all(mma.values()):
         raise AssertionError(f"a blend kernel holds no tensor-core instruction: {mma}")
     est = {k: v for k, v in _build.spills().items() if "cheby_map" in k or "argmin" in k}
     log(f"[2] estimate kernels (map pass, argmin pass x 3): spill bytes {list(est.values())}")
@@ -1875,6 +1887,122 @@ def phase32_mesh(torch, np, lf, smi) -> dict:
             "gloo": {"ranks": ranks, "bytes": gloo_bytes}}
 
 
+# -- phase 33: the archive's 17x17 grid, past 256 images ---------------------
+
+WIDE = 17  # the Stanford Light Field Archive's gantry grid: 17x17 views
+WIDE_HW = 1024
+WIDE_FOCUS = 0.2  # fixed focus, on the refocus slider of the benchmark's cell
+WIDE_WINDOW = (0.0, 0.07)  # all in focus: the benchmark cell's focus window
+
+
+def wide_row(torch, name, kernel_fn, plain_fn, got, stack, weights, nbytes, smi) -> dict:
+    """A blend wrapper's launch `got` of the 17x17 grid held to its plain
+    version (at most 1 LSB) and to the exact sums of `stack` (the near-tie
+    rule), both timed; -> the kernels line's fields."""
+    rule = check_rule(torch, f"{name} at 17x17/1024^2", got, stack, weights)
+    err, differ = check_1lsb(torch, f"{name} against plain at 17x17/1024^2", got,
+                             plain_fn())
+    ms = event_ms(torch, kernel_fn)
+    plain_ms = event_ms(torch, plain_fn, runs=3)
+    g, n = weights.shape[1], 3 * WIDE_HW * WIDE_HW
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound(nbytes, 2 * VIEWS * g * n, "fp16")}
+    log(f"[33] {name}: near-tie rule holds on {rule['bytes']} bytes ({rule['lax']} in the "
+        f"lax band); <= 1 LSB from plain, {differ} bytes differ; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms ({smi})")
+    return row
+
+
+def phase33_wide_grid(torch, np, smi) -> list:
+    """The Interpolator on a seeded 17x17 grid of 1024x1024 images (289, so
+    both blends run in passes over the images), fixed TEN and all in focus,
+    each render's launches and passes counted from a reset just before it;
+    the blend wrappers on the same inputs equal to the render and held to
+    their plain versions. -> the kernels line's two rows."""
+    from lfinterpolator_tpu_torch.api import Interpolator
+    from lfinterpolator_tpu_torch.io import LightField
+    from lfinterpolator_tpu_torch.ops import (
+        _build, allfocus_blend, blend_torch, focus_torch, shift_blend)
+    from lfinterpolator_tpu_torch.state import render_params, upload_params
+    from lfinterpolator_tpu_torch.utils import profiling, scenes
+
+    g, hw, n = WIDE * WIDE, WIDE_HW, 3 * WIDE_HW * WIDE_HW
+    focus, window = WIDE_WINDOW
+    lf = LightField(images=scenes.make_occlusion_scene(
+        WIDE, WIDE, hw, hw, plane_foci=scenes.occlusion_foci(focus, window)),
+        cols=WIDE, rows=WIDE)
+    interp = Interpolator(lf, device="cuda", progress=False)
+    del lf
+    images = interp.images
+    passes = _build.load().lfi_blend_grid_passes(g)
+    if passes < 2:
+        raise AssertionError(f"a grid of {g} images runs in {passes} pass")
+    src = "lfinterpolator_tpu_torch/csrc/"
+    rows = []
+
+    def counted(kernel, **kw):
+        profiling.reset_launch_counts()
+        res = interp.interpolate(TRAJECTORY, method="TEN", benchmark_runs=5,
+                                 progress=False, **kw)
+        counts = profiling.launch_counts()
+        launches, ran = counts[kernel], counts[f"{kernel} passes"]
+        if launches < 1 or ran != launches * passes:
+            raise AssertionError(f"{kernel}: {launches} launches ran {ran} passes, "
+                                 f"not {passes} each")
+        log(f"[33] {kernel}: {res.avg_ms:.3f} ms/frame over 5 runs; launches "
+            f"{ {k: v for k, v in counts.items() if v} } ({smi})")
+        return res, {"launches": launches, "passes": ran}
+
+    res, counts = counted("shift_blend", focus=WIDE_FOCUS)
+    wm, fo = render_params(TRAJECTORY, cols=WIDE, rows=WIDE, height=hw, width=hw,
+                           focus=WIDE_FOCUS, effect=EFFECT, views=VIEWS)
+    weights, shifts = upload_params(wm, fo, "cuda")
+    got = shift_blend.shift_blend(images, weights, shifts)
+    if not np.array_equal(blend_torch.from_planar(got).cpu().numpy(), res.views):
+        raise AssertionError("shift_blend at 17x17 != the Interpolator's TEN render")
+    del res
+    rows.append({"name": "shift_blend (17x17)", "route": "cuda", "source": src + "shift_blend.cu",
+                 "replaces": "the shift_blend row's, at G = 289: shift_blend_kernel<*, true>, "
+                             "in passes over the images",
+                 **counts, **wide_row(
+                     torch, "shift_blend", lambda: shift_blend.shift_blend(images, weights, shifts),
+                     lambda: shift_blend.shift_blend_reference(images, weights, shifts), got,
+                     blend_torch.shift_stack(images, shifts), weights,
+                     g * n + VIEWS * n + 4 * VIEWS * g + 8 * g, smi)})
+    del got
+    torch.cuda.empty_cache()
+
+    res, counts = counted("allfocus_blend", focus=focus, focus_range=window)
+    p, weights, offsets, ids, tables = allfocus_setup(focus, window, WIDE, WIDE, hw, hw)
+    map0 = focus_torch.estimate_focus_map(images[ids], offsets[ids], tables, p.radius, True)
+    map1 = focus_torch.filter_focus_map(map0, p.filter_radius)
+    if not (np.array_equal(res.maps[0], map0.cpu().numpy())
+            and np.array_equal(res.maps[1], map1.cpu().numpy())):
+        raise AssertionError("the 17x17 all-focus maps != the plain pipeline's")
+    distinct = len(torch.unique(map0))
+    if distinct < 2:
+        raise AssertionError("the 17x17 map0 is constant, the check proves nothing")
+    args = (images, weights, offsets, map0, tables.decode)
+    got = allfocus_blend.allfocus_blend(*args)
+    if not np.array_equal(blend_torch.from_planar(got).cpu().numpy(), res.views):
+        raise AssertionError("allfocus_blend at 17x17 != the Interpolator's TEN render")
+    del res
+    log(f"[33] all in focus: maps == the plain pipeline's ({distinct} distinct bytes in map0)")
+    rows.append({"name": "allfocus_blend (17x17)", "route": "cuda",
+                 "source": src + "allfocus_blend.cu",
+                 "replaces": "the allfocus_blend row's, at G = 289: allfocus_blend_kernel<true>, "
+                             "in passes over the images",
+                 **counts, **wide_row(
+                     torch, "allfocus_blend", lambda: allfocus_blend.allfocus_blend(*args),
+                     lambda: allfocus_blend.allfocus_blend_reference(*args), got,
+                     blend_torch.allfocus_selected(images, offsets, map0, tables.decode),
+                     weights, g * n + VIEWS * n + 4 * VIEWS * g + 8 * g + hw * hw + 1024,
+                     smi)})
+    del got, interp, images
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1939,6 +2067,7 @@ def main() -> int:
                 proc.wait()
     slice6["8k"] = phase29_8k(torch, smi)
     mesh_run = phase32_mesh(torch, np, lf, smi)
+    wide = phase33_wide_grid(torch, np, smi)
     foreign = [m for m in sys.modules if m in ("jax", "lfinterpolator_tpu")
                or m.startswith(("jax.", "jaxlib", "lfinterpolator_tpu."))]
     if foreign:
@@ -2011,6 +2140,7 @@ def main() -> int:
          **bound(2 * 45 * n, 0, "fp16"), "library_ms": lib["copy"],
          "library": "tiles.reshape(9, 5, C, H, W).permute(2, 0, 3, 1, 4).contiguous()"},
     ]
+    kernels += wide
     # phases 26-29, each path's own count (shift_blend's streamed launches,
     # K2's counterpart, are counted apart from its other launches)
     for kernel in kernels:

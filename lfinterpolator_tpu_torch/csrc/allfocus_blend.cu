@@ -25,8 +25,13 @@
 // a time computes the source coordinates and issues the 8 byte loads
 // together, so that their latencies overlap, and stages the fp16 values in
 // shared memory, where they serve every view chunk's contraction
-// (lfi::blend_tile: tensor cores, 16-byte stores). Loads coalesce along x
-// wherever neighbouring pixels share their focus.
+// (lfi::contract on the tensor cores, lfi::store_tile's 16-byte stores).
+// Loads coalesce along x wherever neighbouring pixels share their focus.
+// A grid of more than lfi::kGridChunk images is gathered in passes of
+// lfi::kPassRows images, each with its images' weights, the sums carried in
+// registers from pass to pass: at G = 289, five passes (the last of 48
+// images), 37.4 KB of shared memory a block, four blocks to an SM (as the
+// registers allow), where all 289 images at once would leave one.
 // Blocks are ordered channel by channel. A block that staged all three
 // channels of its pixels would compute each coordinate once instead of
 // three times, and measured 1.0 ms against this kernel's 1.5 ms where the
@@ -56,9 +61,47 @@ using Tile = lfi::BlendTile<kNT>;
 
 static_assert(Tile::kP == kThreads, "a thread stages one pixel of the tile");
 
+// This thread's pixel x of images [g0, g0 + rows) of channel c, at focus f,
+// as fp16 into x_s (row g - g0), kLoads images at a time: the loads of a
+// batch are all issued before the first is converted, so that their
+// latencies overlap. Rows g >= G are the zero rows that pad G to a multiple
+// of 16; kLoads divides every pass's rows.
+template <int kLoads>
+__device__ __forceinline__ void gather(const uint8_t* __restrict__ img, int G, int C,
+                                       int H, int W, int64_t plane, int c, int x, int y,
+                                       float f, const float* ox_s, const float* oy_s,
+                                       int g0, int rows, __half* x_s) {
+  for (int j0 = 0; j0 < rows; j0 += kLoads) {
+    uint8_t px[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      // No branch around the load, or the batch's loads would not be
+      // issued together; ox_s and oy_s are in bounds for every g < Gp.
+      const int g = g0 + j0 + u;
+      const bool real = g < G;
+      const int sy = lfi::focus_coord(y, f, oy_s[g], H);
+      const int sx = lfi::focus_coord(x, f, ox_s[g], W);
+      const uint8_t* const src =
+          img + ((int64_t)(real ? g : 0) * C + c) * plane + (int64_t)sy * W + sx;
+      px[u] = real ? *src : (uint8_t)0;
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u)
+      x_s[(j0 + u) * Tile::kXStride + threadIdx.x] = __ushort2half_rn(px[u]);
+  }
+}
+
+// Dynamic shared memory of a block: one pass's weights and operand and the
+// images' offsets.
+__host__ __device__ constexpr size_t smem_bytes(int G) {
+  return Tile::smem_bytes(lfi::grid_chunk(G), lfi::grid_chunk(G),
+                          2 * lfi::padded_grid(G) * sizeof(float));
+}
+
 // Renders rows [r0, r0 + hb) of the frame: the coordinates take the frame
 // row y = r0 + yb and clamp against the full H; the map and the output hold
-// the block's rows only. Dynamic shared memory: Tile::smem_bytes(padded_grid(G), 1).
+// the block's rows only. Dynamic shared memory: smem_bytes(G).
+template <bool kPasses>
 __global__ void __launch_bounds__(kThreads)
 allfocus_blend_kernel(const uint8_t* __restrict__ img,   // [G, C, H, W]
                       const float* __restrict__ w,       // [V, G], fp16-valued
@@ -69,13 +112,15 @@ allfocus_blend_kernel(const uint8_t* __restrict__ img,   // [G, C, H, W]
                       int G, int C, int H, int W, int V, int r0, int hb,
                       int tiles_x) {
   extern __shared__ uint4 smem[];
-  __shared__ float ox_s[kMaxGrid];
-  __shared__ float oy_s[kMaxGrid];
-
   const int Gp = lfi::padded_grid(G);
+  const int Gc = kPasses ? lfi::grid_chunk(G) : Gp;  // images a pass stages
+  const int w_stride = Tile::w_stride(Gc);
   __half* const w_s = reinterpret_cast<__half*>(smem);
-  uint8_t* const out_s = reinterpret_cast<uint8_t*>(smem) + Tile::w_bytes(Gp);
+  uint8_t* const out_s = reinterpret_cast<uint8_t*>(smem) + Tile::w_bytes(Gc);
   __half* const x_s = reinterpret_cast<__half*>(out_s + Tile::out_bytes());
+  float* const ox_s = reinterpret_cast<float*>(
+      reinterpret_cast<uint8_t*>(x_s) + Tile::x_bytes(Gc));
+  float* const oy_s = ox_s + Gp;
 
   const int row = blockIdx.x / tiles_x;  // c * hb + yb
   const int x0 = (blockIdx.x - row * tiles_x) * Tile::kP;
@@ -91,40 +136,51 @@ allfocus_blend_kernel(const uint8_t* __restrict__ img,   // [G, C, H, W]
   const float f = x < W ? decode[fmap[(int64_t)yb * W + x]] : 0.0f;
   __syncthreads();
 
-  // This thread's pixel of every image, kLoads images at a time: the loads
-  // of a batch are all issued before the first is converted. Rows g >= G
-  // are the zero rows that pad G to a multiple of 16.
   const int64_t plane = (int64_t)H * W;
-  constexpr int kLoads = 8;  // divides padded_grid(G)
-  for (int g0 = 0; g0 < Gp; g0 += kLoads) {
-    uint8_t px[kLoads];
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      // No branch around the load, or the batch's loads would not be
-      // issued together; ox_s and oy_s are in bounds for every g < Gp.
-      const int g = g0 + u;
-      const bool real = g < G;
-      const int sy = lfi::focus_coord(y, f, oy_s[g], H);
-      const int sx = lfi::focus_coord(x, f, ox_s[g], W);
-      const uint8_t* const src =
-          img + ((int64_t)(real ? g : 0) * C + c) * plane + (int64_t)sy * W + sx;
-      px[u] = real ? *src : (uint8_t)0;
-    }
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u)
-      x_s[(g0 + u) * Tile::kXStride + threadIdx.x] = __ushort2half_rn(px[u]);
-  }
-
   const int64_t out_plane = (int64_t)hb * W;
   uint8_t* const px0 = out + (int64_t)c * out_plane + (int64_t)yb * W + x0;
   const int64_t view_stride = (int64_t)C * out_plane;
   for (int v0 = 0; v0 < V; v0 += kViewChunk) {
     const int vn = V - v0 < kViewChunk ? V - v0 : kViewChunk;
-    lfi::stage_weights(w, G, Gp, v0, vn, w_s);
+    // The first pass (the only one where the grid fits one): its pixels
+    // are gathered while no sums are live, 8 loads in flight a thread. One
+    // pass gathers once for every chunk of views.
+    if (v0 == 0 || kPasses)
+      gather<8>(img, G, C, H, W, plane, c, x, y, f, ox_s, oy_s, 0, Gc, x_s);
+    lfi::stage_weights(w, G, 0, Gc, w_stride, v0, vn, w_s);
     __syncthreads();
-    lfi::blend_tile<kNT>(x_s, w_s, out_s, Gp, v0, vn, x0, W,
+    lfi::BlendAcc<kNT> acc;
+    acc.zero();
+    lfi::contract<kNT>(acc, x_s, w_s, w_stride, Gc, vn);
+    // Later passes add to the sums in registers, with 16 loads in flight:
+    // the registers they take leave four blocks on an SM, as one pass has
+    // (16 measured 7% faster than 8 at G = 289).
+    if (kPasses) {
+      for (int g0 = Gc; g0 < Gp; g0 += Gc) {
+        const int rows = Gp - g0 < Gc ? Gp - g0 : Gc;
+        __syncthreads();  // every warp is done with the last pass's operands
+        gather<16>(img, G, C, H, W, plane, c, x, y, f, ox_s, oy_s, g0, rows, x_s);
+        lfi::stage_weights(w, G, g0, rows, w_stride, v0, vn, w_s);
+        __syncthreads();
+        lfi::contract<kNT>(acc, x_s, w_s, w_stride, rows, vn);
+      }
+    }
+    lfi::store_tile<kNT>(acc, out_s, v0, vn, x0, W,
                          [&](int v) { return px0 + v * view_stride; });
   }
+}
+
+// The kernel for G images: the one-pass instantiation where the grid
+// fits one pass, else the one that runs later passes.
+auto kernel_for(int G) {
+  return lfi::grid_passes(G) > 1 ? allfocus_blend_kernel<true> : allfocus_blend_kernel<false>;
+}
+
+// Sets the kernel's dynamic shared memory for G images; more than 48 KB
+// must be asked for, and a refusal is the launch's error.
+cudaError_t prepare(int G) {
+  return cudaFuncSetAttribute(kernel_for(G), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_bytes(G));
 }
 
 }  // namespace
@@ -133,6 +189,21 @@ extern "C" {
 
 // Largest G the kernel takes (the wrapper checks against it).
 int lfi_allfocus_blend_max_grid(void) { return kMaxGrid; }
+
+// Dynamic shared memory of a block for G images, in bytes.
+int lfi_allfocus_blend_smem_bytes(int G) { return (int)smem_bytes(G); }
+
+// Blocks of the kernel resident on one SM for G images, as the runtime's
+// occupancy calculator gives them, or minus the CUDA error.
+int lfi_allfocus_blend_blocks_per_sm(int G) {
+  if (G < 1 || G > kMaxGrid) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = prepare(G);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel_for(G),
+                                                        kThreads, smem_bytes(G));
+  return err == cudaSuccess ? n : -(int)err;
+}
 
 // Rows [r0, r0 + hb) of the render into `out` [V, C, hb, W], with `fmap`
 // the map of those rows [hb, W]; r0 = 0 and hb = H render the frame.
@@ -148,14 +219,9 @@ int lfi_allfocus_blend(const uint8_t* img, const float* w, const float* offs,
   const int64_t tiles_x = (W + Tile::kP - 1) / Tile::kP;
   const int64_t blocks = (int64_t)C * hb * tiles_x;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = Tile::smem_bytes(lfi::padded_grid(G), 1);
-  // More than 48 KB of shared memory must be asked for; a refusal is the
-  // launch's error.
-  cudaError_t err = cudaFuncSetAttribute(allfocus_blend_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  cudaError_t err = prepare(G);
   if (err != cudaSuccess) return (int)err;
-  allfocus_blend_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+  kernel_for(G)<<<(unsigned)blocks, kThreads, smem_bytes(G), stream>>>(
       img, w, offs, fmap, decode, out, G, C, H, W, V, r0, hb, (int)tiles_x);
   return (int)cudaGetLastError();
 }

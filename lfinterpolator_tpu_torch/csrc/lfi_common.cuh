@@ -19,24 +19,60 @@
 //
 // What the design does about the bound (bytes):
 //   * the operand tile X is converted to fp16 and staged in shared memory
-//     once per pixel tile by the kernel that owns the load, then reused by
-//     every chunk of kViewChunk views;
+//     by the kernel that owns the load, then reused by every chunk of
+//     kViewChunk views;
 //   * the weights are staged as fp16 [kViewChunk, G] per chunk;
 //   * the result bytes are transposed through shared memory so that each
 //     thread stores 16 consecutive bytes of one view's row.
 // Rows of both shared operands are padded by 16 bytes, which spreads the 8
 // rows of an ldmatrix over all banks.
 //
+// Grids of many images: a grid of at most kGridChunk (96) images is one
+// pass, staged once per pixel tile as before. A larger grid is staged in
+// passes of kPassRows (64) images, each pass's products added to f32
+// accumulators that stay in registers from the first pass to the last.
+// Staging all G images at once would take one block's shared memory past
+// what an SM holds twice (128.75 KB at G = 289), and the loads in flight
+// of the other resident blocks are what hides the latency of the operand
+// loads and gathers. Each kernel is compiled twice from one body, picked
+// by G: for one pass, and with the loop of later passes. The accumulators
+// live across a later pass's loads raise shift_blend's registers from 96
+// to 168 a thread, which in a one-pass kernel would cut the blocks on an
+// SM from five to three and cost 27% at G = 64 (NVIDIA H100 80GB HBM3,
+// 700 W); the one-pass instantiation has no such loop and keeps 96.
+//
 // Numerics: u8 pixels and fp16-valued weights are exact fp16 operands (the
 // callers guarantee fp16-valued weights, see ops/shift_blend.py), every
 // product is exact, and k runs over g in ascending steps of 16 with G padded
 // by zero weights, so a pixel's sum depends on its own G products only, not
-// on how views are chunked, padded or batched. The tensor cores add in
+// on how views are chunked, padded or batched, nor on how the images are
+// split into passes: the passes issue the same mma steps on the same
+// accumulator in the same order as one pass would. The tensor cores add in
 // their own order inside a step, so the result is not bit-equal to a
 // sequential f32 sum. It obeys the near-tie rule: where the exact sum lies
 // further than 2^-8 from a half-integer the byte is clip(rint(sum))
 // exactly, elsewhere it is one of the two neighbouring bytes. Rounding is
 // half to even (__float2int_rn), then clip, then cast.
+//
+// Why the rule holds up to kMaxGrid = 512 images. The weights of a render
+// are >= 0 and sum to 1 within fp16 rounding (< 1 + 2^-10), so every
+// partial sum of products, in any order, lies in [0, 256) and its f32 ulp
+// is at most 2^-16. An mma step adds its 16 exact products and the f32
+// accumulator aligned to the largest exponent among them, truncating each
+// below a few bits past the f32 significand, and normalises once,
+// truncating (the published models of these tensor cores, Volta to Hopper:
+// Fasi, Higham, Mikaitis and Pranesh, PeerJ Computer Science 2021; Khattak
+// and Mikaitis 2025). With 2 such bits a step errs by less than
+// 17 * 2^-18 + 2^-16 = 5.25 * 2^-16, and by less than 2 * (9 * 2^-18 +
+// 2^-16) = 6.5 * 2^-16 were it done as two halves of 8 products. Over the
+// Gp / 16 steps: 6.5 * 2^-16 * 32 = 3.2e-3 at G = 512 and 1.9e-3 at G = 289,
+// under the band 2^-8 = 3.9e-3, so a byte whose exact sum lies further than
+// the band from a half-integer rounds to clip(rint(sum)). A card test
+// (tests/test_torch_wide_grid.py) plants at G = 512 products whose low bits
+// such truncation drops, 255/256 of an ulp each, which hardware without
+// those bits would turn into rule breaks. 512 is also as far as
+// shift_blend's resident fp16 weights [kViewChunk, Gp] leave two blocks
+// on an SM.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -47,7 +83,9 @@ namespace lfi {
 
 constexpr int kThreads = 128;   // 4 warps per blend block
 constexpr int kViewChunk = 64;  // views per contraction: 4 mma row tiles
-constexpr int kMaxGrid = 256;   // largest G (images) the blend kernels take
+constexpr int kMaxGrid = 512;   // largest G (images) the blend kernels take
+constexpr int kGridChunk = 96;  // most images a grid of one pass has
+constexpr int kPassRows = 64;   // images a pass of a larger grid stages
 constexpr int kRowPad = 8;      // fp16 values appended to each shared row
 
 // trunc(v) toward zero, as C's int cast does (focusCoords in the reference).
@@ -70,11 +108,25 @@ __device__ __forceinline__ int focus_coord(int q, float f, float o, int n) {
 
 __host__ __device__ constexpr int padded_grid(int G) { return (G + 15) / 16 * 16; }
 
+// The passes of a blend over G images: a padded grid of at most
+// kGridChunk images is one pass; a larger one is staged kPassRows images a
+// pass, the last pass taking the rest (a multiple of 16).
+__host__ __device__ constexpr int grid_chunk(int G) {
+  return padded_grid(G) <= kGridChunk ? padded_grid(G) : kPassRows;
+}
+__host__ __device__ constexpr int grid_passes(int G) {
+  return (padded_grid(G) + grid_chunk(G) - 1) / grid_chunk(G);
+}
+static_assert(kGridChunk % 16 == 0 && kPassRows % 16 == 0, "passes hold whole mma k steps");
+
 // The shared-memory layout of a blend block with kNT mma column tiles per
 // warp: a pixel tile of kP = 32 * kNT pixels of one image row.
-//   w_s   [kViewChunk][Gp + kRowPad] fp16   the chunk's weights
-//   out_s [kViewChunk][kP + 16] u8          the chunk's result bytes
-//   x_s   [channels][Gp][kP + kRowPad] fp16 the staged operand
+//   w_s    [kViewChunk][w_cols + kRowPad] fp16  the chunk's weights
+//   out_s  [kViewChunk][kP + 16] u8             the chunk's result bytes
+//   x_s    [x_rows][kP + kRowPad] fp16          one pass's staged operand
+//   tables                                      the kernel's per-image tables
+// w_cols is Gp where a block keeps all its weights (shift_blend), else the
+// pass's images; x_rows is grid_chunk(G).
 template <int kNT>
 struct BlendTile {
   static_assert(kNT % 2 == 0, "ldmatrix.x4 loads two column tiles at once");
@@ -82,18 +134,19 @@ struct BlendTile {
   static constexpr int kXStride = kP + kRowPad;  // fp16 values per x_s row
   static constexpr int kOutStride = kP + 16;     // bytes per out_s row
 
-  __host__ __device__ static constexpr int w_stride(int Gp) { return Gp + kRowPad; }
-  __host__ __device__ static constexpr size_t w_bytes(int Gp) {
-    return (size_t)kViewChunk * w_stride(Gp) * sizeof(__half);
+  __host__ __device__ static constexpr int w_stride(int w_cols) { return w_cols + kRowPad; }
+  __host__ __device__ static constexpr size_t w_bytes(int w_cols) {
+    return (size_t)kViewChunk * w_stride(w_cols) * sizeof(__half);
   }
   __host__ __device__ static constexpr size_t out_bytes() {
     return (size_t)kViewChunk * kOutStride;
   }
-  __host__ __device__ static constexpr size_t x_bytes(int Gp) {
-    return (size_t)Gp * kXStride * sizeof(__half);  // of one channel
+  __host__ __device__ static constexpr size_t x_bytes(int x_rows) {
+    return (size_t)x_rows * kXStride * sizeof(__half);
   }
-  __host__ __device__ static constexpr size_t smem_bytes(int Gp, int channels) {
-    return w_bytes(Gp) + out_bytes() + channels * x_bytes(Gp);
+  __host__ __device__ static constexpr size_t smem_bytes(int w_cols, int x_rows,
+                                                         size_t tables) {
+    return w_bytes(w_cols) + out_bytes() + x_bytes(x_rows) + tables;
   }
 };
 
@@ -107,35 +160,36 @@ __device__ __forceinline__ uint32_t bytes_to_half2(uint32_t word, uint32_t sel) 
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// The chunk's weights w[v0 .. v0 + vn, 0 .. G] as fp16 into w_s, rows past
-// vn and columns past G zero. Exact for fp16-valued weights. Four weights a
-// load where G and the matrix's address allow it.
+// The chunk's weights w[v0 .. v0 + vn, g0 .. g0 + cols) as fp16 into w_s
+// (rows of `stride` values, column g at g - g0), rows past vn and columns
+// past G zero. Exact for fp16-valued weights. Four weights a load where G
+// and the matrix's address allow it. g0 and cols are multiples of 16.
 __device__ __forceinline__ void stage_weights(const float* __restrict__ w, int G,
-                                              int Gp, int v0, int vn,
-                                              __half* w_s) {
-  const int stride = Gp + kRowPad;
+                                              int g0, int cols, int stride, int v0,
+                                              int vn, __half* w_s) {
   if ((G & 3) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0) {
-    const int quads = Gp / 4;
+    const int quads = cols / 4;
     for (int i = threadIdx.x; i < kViewChunk * quads; i += kThreads) {
       const int vv = i / quads;
-      const int g = (i - vv * quads) * 4;
+      const int j = (i - vv * quads) * 4;
       float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (vv < vn && g < G)
-        f = __ldg(reinterpret_cast<const float4*>(w + (int64_t)(v0 + vv) * G + g));
+      if (vv < vn && g0 + j < G)
+        f = __ldg(reinterpret_cast<const float4*>(w + (int64_t)(v0 + vv) * G + g0 + j));
       const __half2 lo = __floats2half2_rn(f.x, f.y);
       const __half2 hi = __floats2half2_rn(f.z, f.w);
       uint2 packed;
       packed.x = *reinterpret_cast<const uint32_t*>(&lo);
       packed.y = *reinterpret_cast<const uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(w_s + vv * stride + g) = packed;
+      *reinterpret_cast<uint2*>(w_s + vv * stride + j) = packed;
     }
     return;
   }
-  for (int i = threadIdx.x; i < kViewChunk * Gp; i += kThreads) {
-    const int vv = i / Gp;
-    const int g = i - vv * Gp;
-    const float f = (vv < vn && g < G) ? __ldg(w + (int64_t)(v0 + vv) * G + g) : 0.0f;
-    w_s[vv * stride + g] = __float2half_rn(f);
+  for (int i = threadIdx.x; i < kViewChunk * cols; i += kThreads) {
+    const int vv = i / cols;
+    const int j = i - vv * cols;
+    const float f =
+        (vv < vn && g0 + j < G) ? __ldg(w + (int64_t)(v0 + vv) * G + g0 + j) : 0.0f;
+    w_s[vv * stride + j] = __float2half_rn(f);
   }
 }
 
@@ -171,31 +225,37 @@ __device__ __forceinline__ uint32_t round_byte(float v) {
   return (uint32_t)(q < 0 ? 0 : (q > 255 ? 255 : q));
 }
 
-// One chunk of views of one staged channel tile, by all threads of the
-// block: the contraction of w_s (vn <= kViewChunk rows) with x_s over Gp,
-// the bytes through out_s, then view v0 + vv's kP bytes (those with
-// x0 + p < W) to dst(v0 + vv), the address of the tile's first pixel in
-// that view's row. Warp i owns pixel columns [8 * kNT * i, 8 * kNT * (i + 1))
-// for all the chunk's views. Row tiles past vn are skipped.
-// w_s and x_s must be staged and visible (a __syncthreads() since); on
-// return every thread has passed a barrier after its last access, so the
-// caller may overwrite any of the three buffers.
-template <int kNT, class Dst>
-__device__ __forceinline__ void blend_tile(const __half* x_s, const __half* w_s,
-                                           uint8_t* out_s, int Gp, int v0, int vn,
-                                           int x0, int W, Dst dst) {
+// A thread's f32 accumulators of one chunk of views: row tile mt, column
+// tile nt, the four values of an mma fragment. Held in registers from a
+// tile's first pass to its store.
+template <int kNT>
+struct BlendAcc {
+  float c[4][kNT][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[mt][nt][i] = 0.0f;
+  }
+};
+
+// One pass of the contraction, by all threads of the block: acc +=
+// w_s[0 .. vn, 0 .. rows) . x_s[0 .. rows, tile), k ascending in steps of
+// 16. w_s is the pass's first weight column, in rows of `w_stride` values
+// (a multiple of 8). Warp i owns pixel columns [8 * kNT * i,
+// 8 * kNT * (i + 1)) for all the chunk's views; row tiles past vn are
+// skipped. w_s and x_s must be staged and visible (a __syncthreads()
+// since); the caller syncs again before overwriting either.
+template <int kNT>
+__device__ __forceinline__ void contract(BlendAcc<kNT>& acc, const __half* x_s,
+                                         const __half* w_s, int w_stride, int rows,
+                                         int vn) {
   using T = BlendTile<kNT>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int w_stride = T::w_stride(Gp);
-
-  float acc[4][kNT][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
 
   // ldmatrix.x4: lanes 8m .. 8m + 7 address the rows of matrix m.
   //   W (row-major [view][g]): matrices (views 0-7, g 0-7), (views 8-15,
@@ -208,7 +268,7 @@ __device__ __forceinline__ void blend_tile(const __half* x_s, const __half* w_s,
   const uint32_t b_base = smem_addr(
       x_s + ((m & 1) * 8 + r) * T::kXStride + warp * 8 * kNT + (m >> 1) * 8);
 
-  for (int k0 = 0; k0 < Gp; k0 += 16) {  // ascending g, always in this order
+  for (int k0 = 0; k0 < rows; k0 += 16) {  // ascending g, always in this order
     uint32_t b[kNT / 2][4];
 #pragma unroll
     for (int np = 0; np < kNT / 2; ++np)
@@ -222,11 +282,26 @@ __device__ __forceinline__ void blend_tile(const __half* x_s, const __half* w_s,
                                     (uint32_t)sizeof(__half));
 #pragma unroll
         for (int nt = 0; nt < kNT; ++nt)
-          mma_m16n8k16(acc[mt][nt], a, b[nt / 2][(nt & 1) * 2],
+          mma_m16n8k16(acc.c[mt][nt], a, b[nt / 2][(nt & 1) * 2],
                        b[nt / 2][(nt & 1) * 2 + 1]);
       }
     }
   }
+}
+
+// The chunk's bytes, by all threads of the block: the accumulators rounded
+// into out_s, then view v0 + vv's kP bytes (those with x0 + p < W) to
+// dst(v0 + vv), the address of the tile's first pixel in that view's row.
+// Every thread must have finished its last contract() (out_s lies apart
+// from w_s and x_s, so no barrier is needed before the bytes go in); on
+// return every thread has passed a barrier after its last access, so the
+// caller may overwrite any of the shared buffers.
+template <int kNT, class Dst>
+__device__ __forceinline__ void store_tile(const BlendAcc<kNT>& acc, uint8_t* out_s,
+                                           int v0, int vn, int x0, int W, Dst dst) {
+  using T = BlendTile<kNT>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 
   // The accumulator fragment holds rows lane / 4 and lane / 4 + 8, columns
   // 2 * (lane % 4) and the next: two bytes per store into out_s.
@@ -238,7 +313,7 @@ __device__ __forceinline__ void blend_tile(const __half* x_s, const __half* w_s,
       if (mt * 16 < vn) {
 #pragma unroll
         for (int nt = 0; nt < kNT; ++nt) {
-          const float(&c)[4] = acc[mt][nt];
+          const float(&c)[4] = acc.c[mt][nt];
           uint8_t* const p = o + mt * 16 * T::kOutStride + nt * 8;
           *reinterpret_cast<uint16_t*>(p) =
               (uint16_t)(round_byte(c[0]) | (round_byte(c[1]) << 8));

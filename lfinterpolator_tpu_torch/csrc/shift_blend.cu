@@ -38,10 +38,17 @@
 // every view (spans that touch an edge of the row take clamped byte loads).
 // A thread issues the loads of four spans before it converts the first, so
 // that their latencies overlap.
-// lfi::blend_tile then contracts the staged tile with the weights on the
-// tensor cores, 64 views at a time, and stores 16 bytes per thread. The
-// weights are staged once per block when there are at most 64 views, once
-// per channel and chunk otherwise.
+// lfi::contract then contracts the staged tile with the weights on the
+// tensor cores, 64 views at a time, and lfi::store_tile stores 16 bytes per
+// thread. The weights of all G images stay staged, once per block when
+// there are at most 64 views, once per channel and chunk otherwise. A grid
+// of more than lfi::kGridChunk images is staged in passes of
+// lfi::kPassRows images, the sums carried in registers from pass to pass:
+// at G = 289, five passes (the last of 48 images), 67.4 KB of shared memory
+// a block, three blocks to an SM where all 289 images at once would leave
+// one. Staging each pass's weights instead, in 37.4 KB, took 1.95 ms
+// against 1.29 at G = 289 (three times the weights read, on top of the
+// operand); passes of 80 and 128 images took 1.43 and 1.66 ms.
 //
 // Numerics: the near-tie rule of lfi_common.cuh (exact fp16 operands, f32
 // tensor-core sums in ascending steps of 16 over g, round half to even,
@@ -126,11 +133,56 @@ __device__ __forceinline__ void finish_span16(const Span16& s,
   reinterpret_cast<uint4*>(dst)[1] = h[1];
 }
 
+// Stages rows [g0, g0 + rows) of channel c's operand for the block's tile
+// into x_s (row g - g0), as fp16: row g is the span of image g's row
+// src_row[g] from x0 + dx_s[g]. A thread's spans go kBatch at a time: all
+// their words are loaded before the first is converted, so the loads'
+// latencies overlap. Rows g >= G are the zero rows that pad G to a
+// multiple of 16.
+__device__ __forceinline__ void stage_spans(const uint8_t* __restrict__ img, int G,
+                                            int C, int W, int64_t plane, int c,
+                                            int x0, const int* src_row,
+                                            const int* dx_s, int g0, int rows,
+                                            const uint8_t* img_end, __half* x_s) {
+  constexpr int kSpans = Tile::kP / 16;  // 16-pixel spans per staged row
+  constexpr int kBatch = 4;              // spans a thread has in flight
+  for (int q0 = threadIdx.x; q0 < rows * kSpans; q0 += kBatch * kThreads) {
+    Span16 span[kBatch];
+    const uint8_t* row[kBatch];
+    int sx0[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int q = q0 + u * kThreads;
+      const int g = g0 + q / kSpans;
+      const bool real = g < G;
+      const int gi = real ? g : 0;  // the tables hold g < G only
+      row[u] = img + ((int64_t)gi * C + c) * plane + (int64_t)(real ? src_row[gi] : 0) * W;
+      sx0[u] = x0 + (q % kSpans) * 16 + (real ? dx_s[gi] : 0);
+      span[u] = load_span16(row[u], W, sx0[u], real, img, img_end);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int q = q0 + u * kThreads;
+      if (q < rows * kSpans)
+        finish_span16(span[u], row[u], W, sx0[u],
+                      x_s + (q / kSpans) * Tile::kXStride + (q % kSpans) * 16);
+    }
+  }
+}
+
+// Dynamic shared memory of a block: all its weights, one pass's operand
+// and the two per-image tables.
+__host__ __device__ constexpr size_t smem_bytes(int G) {
+  return Tile::smem_bytes(lfi::padded_grid(G), lfi::grid_chunk(G),
+                          2 * lfi::padded_grid(G) * sizeof(int));
+}
+
 // Renders rows [r0, r0 + hb) of the frame: block row j is image row
 // y = r0 + j, and the shifts clamp against the full H. kQuilt: `out` is the
 // [C, (V / cols) * H, cols * W] canvas (r0 = 0, hb = H), else [V, C, hb, W].
-// Dynamic shared memory: Tile::smem_bytes(padded_grid(G), 1).
-template <bool kQuilt>
+// kPasses: G takes more than one pass (lfi::grid_passes). Dynamic shared
+// memory: smem_bytes(G).
+template <bool kQuilt, bool kPasses>
 __global__ void __launch_bounds__(kThreads)
 shift_blend_kernel(const uint8_t* __restrict__ img,    // [G, C, H, W]
                    const float* __restrict__ w,        // [V, G], fp16-valued
@@ -139,13 +191,15 @@ shift_blend_kernel(const uint8_t* __restrict__ img,    // [G, C, H, W]
                    int G, int C, int H, int W, int V, int cols,
                    int r0, int hb, int tiles_x) {
   extern __shared__ uint4 smem[];
-  __shared__ int src_row[kMaxGrid];  // clamp(y + dy_g, 0, H-1)
-  __shared__ int dx_s[kMaxGrid];
-
   const int Gp = lfi::padded_grid(G);
+  const int Gc = kPasses ? lfi::grid_chunk(G) : Gp;  // images a pass stages
+  const int w_stride = Tile::w_stride(Gp);
   __half* const w_s = reinterpret_cast<__half*>(smem);
   uint8_t* const out_s = reinterpret_cast<uint8_t*>(smem) + Tile::w_bytes(Gp);
   __half* const x_s = reinterpret_cast<__half*>(out_s + Tile::out_bytes());
+  int* const src_row = reinterpret_cast<int*>(  // clamp(y + dy_g, 0, H-1)
+      reinterpret_cast<uint8_t*>(x_s) + Tile::x_bytes(Gc));
+  int* const dx_s = src_row + Gp;
 
   const int yb = blockIdx.x / tiles_x;  // row of the block
   const int x0 = (blockIdx.x - yb * tiles_x) * Tile::kP;
@@ -161,40 +215,33 @@ shift_blend_kernel(const uint8_t* __restrict__ img,    // [G, C, H, W]
   const int64_t out_plane = (int64_t)hb * W;
   const int64_t canvas_w = (int64_t)cols * W;
   const uint8_t* const img_end = img + (int64_t)G * C * plane;
-  constexpr int kSpans = Tile::kP / 16;  // 16-pixel spans per staged row
-  constexpr int kBatch = 4;  // spans a thread has in flight
 
   for (int c = 0; c < C; ++c) {
-    // A thread's spans, kBatch at a time: all their words are loaded
-    // before the first is converted, so the loads' latencies overlap.
-    // Rows g >= G are the zero rows that pad G to a multiple of 16.
-    for (int q0 = threadIdx.x; q0 < Gp * kSpans; q0 += kBatch * kThreads) {
-      Span16 span[kBatch];
-      const uint8_t* row[kBatch];
-      int sx0[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int q = q0 + u * kThreads;
-        const int g = q / kSpans;
-        const bool real = g < G;
-        row[u] = img + ((int64_t)(real ? g : 0) * C + c) * plane +
-                 (int64_t)(real ? src_row[g] : 0) * W;
-        sx0[u] = x0 + (q - g * kSpans) * 16 + (real ? dx_s[g] : 0);
-        span[u] = load_span16(row[u], W, sx0[u], real, img, img_end);
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int q = q0 + u * kThreads;
-        if (q < Gp * kSpans)
-          finish_span16(span[u], row[u], W, sx0[u],
-                        x_s + (q / kSpans) * Tile::kXStride + (q % kSpans) * 16);
-      }
-    }
     for (int v0 = 0; v0 < V; v0 += kViewChunk) {
       const int vn = V - v0 < kViewChunk ? V - v0 : kViewChunk;
-      if (c == 0 || V > kViewChunk) lfi::stage_weights(w, G, Gp, v0, vn, w_s);
+      // The first pass (the only one where the grid fits one): its operand
+      // is staged while no sums are live. One pass stages the channel once
+      // for every chunk of views. The weights of all G images stay staged:
+      // once per block when there are at most 64 views, once per channel
+      // and chunk otherwise.
+      if (v0 == 0 || kPasses)
+        stage_spans(img, G, C, W, plane, c, x0, src_row, dx_s, 0, Gc, img_end, x_s);
+      if (c == 0 || V > kViewChunk) lfi::stage_weights(w, G, 0, Gp, w_stride, v0, vn, w_s);
       __syncthreads();
-      lfi::blend_tile<kNT>(x_s, w_s, out_s, Gp, v0, vn, x0, W, [&](int v) {
+      lfi::BlendAcc<kNT> acc;
+      acc.zero();
+      lfi::contract<kNT>(acc, x_s, w_s, w_stride, Gc, vn);
+      // Later passes add to the sums in registers.
+      if (kPasses) {
+        for (int g0 = Gc; g0 < Gp; g0 += Gc) {
+          const int rows = Gp - g0 < Gc ? Gp - g0 : Gc;
+          __syncthreads();  // every warp is done with the last pass's operand
+          stage_spans(img, G, C, W, plane, c, x0, src_row, dx_s, g0, rows, img_end, x_s);
+          __syncthreads();
+          lfi::contract<kNT>(acc, x_s, w_s + g0, w_stride, rows, vn);
+        }
+      }
+      lfi::store_tile<kNT>(acc, out_s, v0, vn, x0, W, [&](int v) {
         if (kQuilt)  // view v's tile (v / cols, v % cols) of channel c's canvas plane
           return out + ((int64_t)c * (V / cols) * H + (int64_t)(v / cols) * H + y) * canvas_w +
                  (int64_t)(v % cols) * W + x0;
@@ -204,6 +251,23 @@ shift_blend_kernel(const uint8_t* __restrict__ img,    // [G, C, H, W]
   }
 }
 
+// The kernel for G images: the one-pass instantiation where the grid
+// fits one pass, else the one that runs later passes.
+template <bool kQuilt>
+auto kernel_for(int G) {
+  return lfi::grid_passes(G) > 1 ? shift_blend_kernel<kQuilt, true>
+                                 : shift_blend_kernel<kQuilt, false>;
+}
+
+// Sets the kernel's dynamic shared memory for G images; more than 48 KB
+// must be asked for, and a refusal is the launch's error.
+template <bool kQuilt>
+cudaError_t prepare(int G) {
+  return cudaFuncSetAttribute(kernel_for<kQuilt>(G),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_bytes(G));
+}
+
 template <bool kQuilt>
 int launch(const uint8_t* img, const float* w, const int32_t* shifts, uint8_t* out,
            int G, int C, int H, int W, int V, int cols, int r0, int hb,
@@ -211,14 +275,9 @@ int launch(const uint8_t* img, const float* w, const int32_t* shifts, uint8_t* o
   const int64_t tiles_x = (W + Tile::kP - 1) / Tile::kP;
   const int64_t blocks = (int64_t)hb * tiles_x;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = Tile::smem_bytes(lfi::padded_grid(G), 1);
-  // More than 48 KB of shared memory must be asked for; a refusal is the
-  // launch's error.
-  cudaError_t err = cudaFuncSetAttribute(shift_blend_kernel<kQuilt>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  cudaError_t err = prepare<kQuilt>(G);
   if (err != cudaSuccess) return (int)err;
-  shift_blend_kernel<kQuilt><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  kernel_for<kQuilt>(G)<<<(unsigned)blocks, kThreads, smem_bytes(G), stream>>>(
       img, w, shifts, out, G, C, H, W, V, cols, r0, hb, (int)tiles_x);
   return (int)cudaGetLastError();
 }
@@ -229,6 +288,25 @@ extern "C" {
 
 // Largest G the kernel takes (the wrapper checks against it).
 int lfi_shift_blend_max_grid(void) { return kMaxGrid; }
+
+// The passes over the images each pixel tile of a blend of G images runs
+// (shift_blend, its quilt instantiation and allfocus_blend alike).
+int lfi_blend_grid_passes(int G) { return lfi::grid_passes(G); }
+
+// Dynamic shared memory of a block for G images, in bytes.
+int lfi_shift_blend_smem_bytes(int G) { return (int)smem_bytes(G); }
+
+// Blocks of the kernel resident on one SM for G images, as the runtime's
+// occupancy calculator gives them, or minus the CUDA error.
+int lfi_shift_blend_blocks_per_sm(int G) {
+  if (G < 1 || G > kMaxGrid) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = prepare<false>(G);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel_for<false>(G),
+                                                        kThreads, smem_bytes(G));
+  return err == cudaSuccess ? n : -(int)err;
+}
 
 // Rows [r0, r0 + hb) of the render into `out` [V, C, hb, W]; r0 = 0 and
 // hb = H render the frame. Launches on `stream`; does not synchronise and

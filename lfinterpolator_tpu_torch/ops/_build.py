@@ -172,6 +172,12 @@ def load() -> ctypes.CDLL:
                 "lfi_quilt_copy": [ptr] * 2 + [i32] * 5 + [ptr],
                 "lfi_shift_blend_max_grid": [],
                 "lfi_allfocus_blend_max_grid": [],
+                # (G): passes over the images; shared memory; blocks per SM
+                "lfi_blend_grid_passes": [i32],
+                "lfi_shift_blend_smem_bytes": [i32],
+                "lfi_allfocus_blend_smem_bytes": [i32],
+                "lfi_shift_blend_blocks_per_sm": [i32],
+                "lfi_allfocus_blend_blocks_per_sm": [i32],
                 "lfi_focus_estimate_max_views": [],
                 "lfi_focus_estimate_max_steps": [],
             }

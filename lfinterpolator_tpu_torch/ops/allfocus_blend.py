@@ -38,8 +38,11 @@ import torch
 from . import blend_torch
 
 #: Kernel launches since import (or since a caller reset it to 0). Counts
-#: only launches of the CUDA kernel, never plain-version calls.
+#: only launches of the CUDA kernel, never plain-version calls. ``passes``
+#: counts the passes over the images those launches ran (as
+#: ``shift_blend.passes``).
 launches = 0
+passes = 0
 
 allfocus_blend_reference = blend_torch.render_allfocus
 
@@ -96,7 +99,7 @@ def allfocus_blend(
     """All-in-focus render of rows [row_start, row_start + row_count) ->
     [V, C, hb, W] uint8 (kernel on CUDA tensors; the defaults: the frame).
     The weights must be fp16-valued (see the module's docstring)."""
-    global launches
+    global launches, passes
     r0, hb = _check(images, weights, offsets, fmap, decode, row_start, row_count)
     if images.device.type == "cpu":
         return allfocus_blend_reference(images, weights, offsets, fmap, decode, r0, hb)
@@ -127,4 +130,5 @@ def allfocus_blend(
             f"({lib.lfi_cuda_error_string(err).decode()})"
         )
     launches += 1
+    passes += lib.lfi_blend_grid_passes(g)
     return out

@@ -164,16 +164,40 @@ def render_allfocus(
                                    row_count), weights)
 
 
+#: Largest grid the blend kernels take (``csrc/lfi_common.cuh``'s
+#: kMaxGrid, which the kernels report through ``lfi_*_max_grid()``): the
+#: near-tie argument (``check_bytes``) is made up to it.
+MAX_GRID = 512
+#: The near-tie band around each half-integer.
+BAND = 2.0 ** -8
+
+
+def f32_sum_error_bound(g: int) -> float:
+    """The most a float32 sum of `g` blend products can differ from their
+    exact sum, whatever the order of the additions.
+
+    A product of a u8 pixel and an fp16-valued weight is exact in float32
+    (8 + 11 significant bits). A render's weights are >= 0 and sum to 1
+    within fp16 rounding (< 1 + 2^-10), so every partial sum, in any order,
+    lies in [0, 256), where float32's ulp is at most 2^-16. Whatever the
+    order (sequential, BLAS blocks, fused multiply-adds, a split reduction),
+    the sum is g - 1 additions of exact or already rounded values, each
+    rounded once to the nearest: at most half an ulp, 2^-17, each."""
+    return (g - 1) * 2.0 ** -17
+
+
 def exact_sums(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """[G, ...] u8 x [V, G] fp16-valued -> [V, ...] float64: the sums over g
     of ``weights[v, g] * stack[g]`` that a blend rounds to bytes, `stack`
     being the shifted or selected images (``shift_stack``,
     ``allfocus_selected``) or a part of them (one channel, a block of rows).
 
-    Every product of a u8 and an fp16 value is exact in float64, and so is
-    the sum of up to 256 of them for weights of a render's magnitude, so
-    this is the yardstick ``check_bytes`` holds a blend's bytes against.
-    The result is 8 bytes per output byte: at full size, call it per channel.
+    Every product of a u8 and an fp16 weight <= 1 is a multiple of 2^-24
+    (fp16's least step) below 2^8, 32 bits wide; a sum of up to 2^21 of
+    them (the kernels take at most ``MAX_GRID``) needs at most 53 bits, so
+    float64 holds each product and partial sum exactly, in any order. This
+    is the yardstick ``check_bytes`` holds a blend's bytes against. The
+    result is 8 bytes per output byte: at full size, call it per channel.
     """
     g = stack.shape[0]
     acc = torch.matmul(weights.to(torch.float64),
@@ -182,17 +206,22 @@ def exact_sums(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 
 
 def check_bytes(got: torch.Tensor, sums: torch.Tensor,
-                band: float = 2.0 ** -8) -> dict[str, int]:
+                band: float = BAND) -> dict[str, int]:
     """The near-tie rule: raise ``AssertionError`` unless the bytes `got`
     are a correct rounding of the exact `sums` (same shape, float64).
 
     Where a sum lies further than `band` from a half-integer, the byte must
     equal ``clip(rint(sum), 0, 255)`` exactly; inside the band it may be
     either of the two neighbouring bytes ``clip(floor(sum))`` and
-    ``clip(floor(sum) + 1)``. A sequential f32 sum of 256 terms <= 255 errs
-    by less than 2^-9 and a tensor-core sum in steps of 16 by less, so the
-    plain version, the NumPy oracle and the kernels all obey the rule, while
-    a wrong operand, a dropped term or another rounding mode does not.
+    ``clip(floor(sum) + 1)``. Why every sound blend of up to ``MAX_GRID``
+    images obeys it: a float32 sum of G products errs by at most
+    ``f32_sum_error_bound(G)`` = (G - 1) 2^-17, 3.9e-3 - 2^-17 at G = 512,
+    under the band 2^-8 = 3.9e-3 (the plain version's ``torch.matmul`` and
+    the NumPy oracle's sequential sum alike); the kernels' tensor-core sums
+    err by less than 6.5 2^-16 a step of 16 images, 3.2e-3 at G = 512
+    (``csrc/lfi_common.cuh``). A sum further than the band from a
+    half-integer then rounds to the same byte as the exact one, while a
+    wrong operand, a dropped term or another rounding mode does not.
 
     -> {"bytes": all, "lax": those inside the band, "ties_off": those
     inside the band that differ from clip(rint(sum))}. The error names the

@@ -33,8 +33,10 @@ from . import blend_torch, quilt_torch, shift_blend
 
 #: Kernel launches since import (or since a caller reset them to 0), per
 #: kernel. Counts only launches of the CUDA kernels, never plain-version
-#: calls.
+#: calls. ``passes``: the passes over the images of the quilt_blend
+#: launches (as ``shift_blend.passes``).
 launches = {"quilt_blend": 0, "quilt_copy": 0}
+passes = 0
 
 
 def quilt_blend_reference(
@@ -64,6 +66,7 @@ def quilt_blend(
 ) -> torch.Tensor:
     """Quilt-only fixed-focus render -> [C, rows*H, cols*W] uint8 canvas,
     view i at tile (i // cols, i % cols) (kernel on CUDA tensors)."""
+    global passes
     shift_blend.check_operands(images, weights, shifts)
     n = cols * rows
     if cols < 1 or rows < 1 or weights.shape[0] < n:
@@ -94,6 +97,7 @@ def quilt_blend(
         )
     _raise_on("lfi_quilt_blend", err, lib)
     launches["quilt_blend"] += 1
+    passes += lib.lfi_blend_grid_passes(g)
     return out
 
 

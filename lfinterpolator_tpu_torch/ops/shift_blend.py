@@ -44,9 +44,13 @@ from . import blend_torch
 #: Kernel launches since import (or since a caller reset it to 0). Counts
 #: only launches of the CUDA kernel, never plain-version calls; a launch
 #: made for a stream's frame (``streamed=True``, the K2 counterpart) counts
-#: in ``stream_launches`` instead.
+#: in ``stream_launches`` instead. ``passes`` and ``stream_passes`` count
+#: the passes over the images those launches ran (a grid of up to 96
+#: images is one pass, a larger one passes of 64: five at 289).
 launches = 0
 stream_launches = 0
+passes = 0
+stream_passes = 0
 
 
 def is_available() -> bool:
@@ -115,7 +119,7 @@ def shift_blend(
     [V, C, hb, W] uint8 (kernel on CUDA tensors; the defaults: the frame).
     The weights must be fp16-valued (see the module's docstring).
     `streamed` counts the launch as a stream's (``stream_launches``)."""
-    global launches, stream_launches
+    global launches, stream_launches, passes, stream_passes
     check_operands(images, weights, shifts)
     r0, hb = blend_torch.row_block(images.shape[2], row_start, row_count)
     if images.device.type == "cpu":
@@ -146,8 +150,11 @@ def shift_blend(
             f"lfi_shift_blend launch failed: CUDA error {err} "
             f"({lib.lfi_cuda_error_string(err).decode()})"
         )
+    n = lib.lfi_blend_grid_passes(g)
     if streamed:
         stream_launches += 1
+        stream_passes += n
     else:
         launches += 1
+        passes += n
     return out

@@ -196,20 +196,27 @@ def trace(log_dir: str):
 def launch_counts() -> dict[str, int]:
     """Every kernel wrapper's launch count, by kernel (the names of
     ``chip_smoke.py``'s kernels line; an estimate counts once under its tap
-    rule). Plain-version calls are never counted."""
+    rule), and beside each blend kernel's the passes over the images its
+    launches ran (``<kernel> passes``). Plain-version calls are never
+    counted."""
     from ..ops import allfocus_blend, focus_estimate, quilt, shift_blend
 
     return {"shift_blend": shift_blend.launches,
+            "shift_blend passes": shift_blend.passes,
             "shift_blend (stream)": shift_blend.stream_launches,
+            "shift_blend (stream) passes": shift_blend.stream_passes,
             "allfocus_blend": allfocus_blend.launches,
+            "allfocus_blend passes": allfocus_blend.passes,
             **{f"focus_estimate_{rule}": n for rule, n in focus_estimate.launches.items()},
-            **quilt.launches}
+            **quilt.launches,
+            "quilt_blend passes": quilt.passes}
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch and pass count to 0."""
     from ..ops import allfocus_blend, focus_estimate, quilt, shift_blend
 
     shift_blend.launches = shift_blend.stream_launches = allfocus_blend.launches = 0
+    shift_blend.passes = shift_blend.stream_passes = allfocus_blend.passes = quilt.passes = 0
     for counts in (focus_estimate.launches, quilt.launches):
         counts.update(dict.fromkeys(counts, 0))

@@ -169,7 +169,8 @@ def main() -> int:
     spills = {k: v for k, v in _build.spills().items() if "blend_kernel" in k}
     mma = {k: v for k, v in _build.tensor_core_instructions().items() if "blend_kernel" in k}
     print(f"spill bytes {spills}\ntensor-core instructions {mma}", flush=True)
-    if any(spills.values()) or len(mma) != 3 or not all(mma.values()):
+    # three kernels, each built for one pass and with later passes
+    if any(spills.values()) or len(mma) != 6 or not all(mma.values()):
         raise AssertionError("a blend kernel spills or holds no tensor-core instruction")
     check_small()
     if "--no-time" not in sys.argv[1:]:

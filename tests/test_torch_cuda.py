@@ -157,8 +157,9 @@ def test_zero_padding_of_the_weight_matrix_changes_nothing(cuda_device):
 @pytest.mark.parametrize("kernel", ["shift_blend", "allfocus_blend"])
 def test_refused_launch_surfaces_as_an_error(kernel, cuda_device, monkeypatch):
     """The C entry point refuses what the kernel cannot launch (here a grid
-    whose staged tile would not fit the dynamic shared memory it sizes for
-    at most 256 images) and the wrapper raises with CUDA's error."""
+    past the most images it takes, 512, whose per-image tables and
+    resident weights it does not size for) and the wrapper raises with
+    CUDA's error."""
     from lfinterpolator_tpu_torch.ops import _build
 
     lib = _build.load()
@@ -186,10 +187,11 @@ def test_refused_launch_surfaces_as_an_error(kernel, cuda_device, monkeypatch):
 
 @pytest.mark.cuda
 def test_wrapper_rejects_too_many_images(cuda_device):
-    x = torch.zeros((257, 3, 4, 4), dtype=torch.uint8, device=cuda_device)
-    w = torch.zeros((2, 257), dtype=torch.float32, device=cuda_device)
-    s = torch.zeros((257, 2), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="at most 256"):
+    g = blend_torch.MAX_GRID + 1
+    x = torch.zeros((g, 3, 4, 4), dtype=torch.uint8, device=cuda_device)
+    w = torch.zeros((2, g), dtype=torch.float32, device=cuda_device)
+    s = torch.zeros((g, 2), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match=f"at most {blend_torch.MAX_GRID} grid images"):
         shift_blend.shift_blend(x, w, s)
 
 
@@ -390,10 +392,12 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="different devices"):
         focus_estimate.focus_estimate(sel[:2], offs[:2].cpu(), tables, (2, 2))
 
-    img = torch.zeros((257, 3, 4, 4), dtype=torch.uint8, device=cuda_device)
-    w = torch.zeros((2, 257), dtype=torch.float32, device=cuda_device)
+    g = blend_torch.MAX_GRID + 1
+    img = torch.zeros((g, 3, 4, 4), dtype=torch.uint8, device=cuda_device)
+    w = torch.zeros((2, g), dtype=torch.float32, device=cuda_device)
     fmap = torch.zeros((4, 4), dtype=torch.uint8, device=cuda_device)
-    with pytest.raises(ValueError, match="at most 256 grid images"):
+    offs = torch.zeros((g, 2), dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError, match=f"at most {blend_torch.MAX_GRID} grid images"):
         allfocus_blend.allfocus_blend(img, w, offs, fmap, tables.decode)
     with pytest.raises(ValueError, match="weights must be"):
         allfocus_blend.allfocus_blend(img, w.half(), offs, fmap, tables.decode)
