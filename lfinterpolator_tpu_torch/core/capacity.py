@@ -7,11 +7,38 @@ batches instead of failing in the allocator.
 
 The budget (``device_hbm_bytes``) is what a render may still allocate: the
 free device memory plus the blocks PyTorch's caching allocator holds
-unused. It does NOT include the Interpolator's resident image stack, which
-is allocated at construction; no plan here counts that stack.
-``LFI_HBM_BYTES`` overrides the budget with the same meaning (bytes beyond
-the resident stack), which keeps the batched arm testable on the CPU, whose
-own budget is unbounded.
+unused, free + reserved - allocated. It does NOT include the
+Interpolator's resident image stack, which is allocated at construction;
+no plan here counts that stack. ``LFI_HBM_BYTES`` overrides the budget with
+the same meaning (bytes beyond the resident stack), which keeps the batched
+arm testable on the CPU, whose own budget is unbounded; an explicit
+``budget=`` bypasses the reading.
+
+When the budget is read and when it is reused: ``free`` is a CUDA call
+(``cudaMemGetInfo``, about a millisecond of host time) and ``reserved`` and
+``allocated`` are the caching allocator's counts. The allocator's own
+``cudaMalloc`` and ``cudaFree`` move ``free`` and ``reserved`` by equal and
+opposite amounts, so free + reserved, taken at one free-memory reading,
+stays true while only PyTorch's allocator touches the card. Each reading
+keeps that sum per device, and a later request is sized against it less
+the allocator's current ``allocated`` bytes: one read of the allocator's
+counts, no ``cudaMemGetInfo``. Free memory is read again whenever the
+cached budget could give another answer than a fresh reading:
+
+  - the request's peak (``plan_render``'s one-pass bytes, or
+    ``check_capacity``'s bytes) is more than half the cached budget. A
+    plan that would batch views or raise, and a check that would raise,
+    all lie there (the headroom takes at most a sixteenth of a budget), so
+    a request near the memory limit is always sized against a fresh
+    reading;
+  - the reading is older than ``READING_TTL_S`` (1 s, on a monotonic
+    clock). That bounds how long an allocation made outside PyTorch's
+    allocator (another process, NCCL, the CUDA context) goes unseen.
+
+One rule for every caller: ``plan_render`` and ``check_capacity`` (the
+stream, the fused quilt, a mesh rank's shard) share it. ``budget_reads``
+counts the free-memory readings (``profiling.launch_counts``' ``capacity
+budget reads``), each inside an ``lfi.plan.read`` span.
 
 What a render holds beyond the stack, uint8 unless noted (``plan_render``):
 
@@ -40,29 +67,67 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import torch
 
 from ..ops import blend_torch, focus_estimate
+from ..utils import profiling
 
 #: The budget reported where no device memory limits a render (the CPU).
 UNBOUNDED = 1 << 62
+#: Seconds a reading of free + reserved serves (module docstring).
+READING_TTL_S = 1.0
+
+#: Free-memory readings made (``cudaMemGetInfo``), for ``profiling.launch_counts``.
+budget_reads = 0
+#: The device's free + reserved bytes at its last free-memory reading, and the
+#: reading's time on ``_clock``, by device index. A fact of the process
+#: (every caller on a device shares its memory), so kept per module.
+_readings: dict[int, tuple[int, float]] = {}
+_clock = time.monotonic  # the readings' age (tests put a fake clock here)
 
 
-def device_hbm_bytes(device) -> int:
+def _current(stats: dict, key: str) -> int:
+    return stats[key]["all"]["current"]
+
+
+def _read(index: int) -> int:
+    """One free-memory reading of device `index`, kept in ``_readings``: -> its
+    budget. The allocator's counts come from its nested statistics, without
+    ``torch.cuda.memory_stats``' flattening."""
+    global budget_reads
+    with profiling.span("lfi.plan.read"):
+        free, _ = torch.cuda.mem_get_info(index)
+        stats = torch.cuda.memory_stats_as_nested_dict(index)
+    budget_reads += 1
+    held = free + _current(stats, "reserved_bytes")
+    _readings[index] = (held, _clock())
+    return held - _current(stats, "allocated_bytes")
+
+
+def device_hbm_bytes(device, peak: int | None = None) -> int:
     """Bytes a render on `device` may still allocate (module docstring).
 
-    `LFI_HBM_BYTES` overrides; a CUDA device reports
-    ``torch.cuda.mem_get_info``'s free bytes plus what the caching
-    allocator reserves unused; any other device is unbounded."""
+    `LFI_HBM_BYTES` overrides; any device but CUDA is unbounded. A CUDA
+    device reports free + reserved - allocated: with `peak`, the bytes the
+    request needs, from the last free-memory reading while it is younger than
+    ``READING_TTL_S`` and `peak` is at most half the budget it gives;
+    else, and without `peak`, from a new reading."""
     env = os.environ.get("LFI_HBM_BYTES")
     if env:
         return int(env)
     device = torch.device(device)
     if device.type != "cuda":
         return UNBOUNDED
-    free, _ = torch.cuda.mem_get_info(device)
-    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    cached = _readings.get(index)
+    if peak is not None and cached is not None and _clock() - cached[1] <= READING_TTL_S:
+        budget = cached[0] - _current(torch.cuda.memory_stats_as_nested_dict(index),
+                                      "allocated_bytes")
+        if 2 * peak <= budget:
+            return budget
+    return _read(index)
 
 
 def _headroom(budget: int) -> int:
@@ -115,8 +180,6 @@ def plan_render(
     render (both methods blend on the kernel then); `extra` bytes are held
     beside the render throughout (a quilt's canvas). Raises ValueError with
     the arithmetic when even a one-view batch cannot fit."""
-    b = device_hbm_bytes(device) if budget is None else budget
-    b_eff = b - _headroom(b)
     n = c * h * w
     estimate = estimate_bytes(focus_views, c, h, w)
     maps = 2 * h * w if focus_views else 0
@@ -127,6 +190,8 @@ def plan_render(
         return maps + in_flight * 2 * vb * n + temp + extra
 
     total = max(estimate + extra, render_bytes(v, 1))
+    b = device_hbm_bytes(device, total) if budget is None else budget
+    b_eff = b - _headroom(b)
     if total <= b_eff:
         return RenderPlan(None, b_eff, total)
     if estimate + extra <= b_eff:
@@ -154,7 +219,7 @@ def check_capacity(resident_bytes: int, what: str, *, device="cuda",
     fused quilt, a mesh rank's shard): it trips only on arithmetic
     certainty. `hint` replaces the default advice (a mesh render must not
     be told to batch views, ``MESH_HINT``)."""
-    b = device_hbm_bytes(device) if budget is None else budget
+    b = device_hbm_bytes(device, resident_bytes) if budget is None else budget
     b_eff = b - _headroom(b)
     if resident_bytes > b_eff:
         unit, div = _units(resident_bytes, b_eff)

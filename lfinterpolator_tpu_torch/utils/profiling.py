@@ -28,8 +28,11 @@ on the calling thread:
   lfi.interpolate_batch  ``interpolate_batch``)
   lfi.params             the host arrays of a render in NumPy
                          (``state.render_params``, ``state.allfocus_params``)
-  lfi.plan               the capacity plan (``core/capacity.py``; it reads the
-                         device's free memory, ``cudaMemGetInfo``)
+  lfi.plan               the capacity plan (``core/capacity.py``), sized
+                         against a cached budget
+  lfi.plan.read          inside it, a reading of the device's free
+                         memory (``cudaMemGetInfo``), where the cached one
+                         does not serve (at most about one a second)
   lfi.upload             the fp16 check of the weights and the small uploads
                          (``state.upload_params``, ``state.upload_allfocus``)
   lfi.estimate           the focus estimate (``pipeline.compute_focus_maps``)
@@ -198,7 +201,9 @@ def launch_counts() -> dict[str, int]:
     ``chip_smoke.py``'s kernels line; an estimate counts once under its tap
     rule), and beside each blend kernel's the passes over the images its
     launches ran (``<kernel> passes``). Plain-version calls are never
-    counted."""
+    counted. ``capacity budget reads`` counts the capacity plan's
+    readings of the device's free memory (``core/capacity.py``)."""
+    from ..core import capacity
     from ..ops import allfocus_blend, focus_estimate, quilt, shift_blend
 
     return {"shift_blend": shift_blend.launches,
@@ -209,13 +214,17 @@ def launch_counts() -> dict[str, int]:
             "allfocus_blend passes": allfocus_blend.passes,
             **{f"focus_estimate_{rule}": n for rule, n in focus_estimate.launches.items()},
             **quilt.launches,
-            "quilt_blend passes": quilt.passes}
+            "quilt_blend passes": quilt.passes,
+            "capacity budget reads": capacity.budget_reads}
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch and pass count to 0."""
+    """Set every kernel wrapper's launch and pass count, and the count of
+    budget readings, to 0."""
+    from ..core import capacity
     from ..ops import allfocus_blend, focus_estimate, quilt, shift_blend
 
+    capacity.budget_reads = 0
     shift_blend.launches = shift_blend.stream_launches = allfocus_blend.launches = 0
     shift_blend.passes = shift_blend.stream_passes = allfocus_blend.passes = quilt.passes = 0
     for counts in (focus_estimate.launches, quilt.launches):

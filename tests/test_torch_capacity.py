@@ -100,6 +100,192 @@ def test_device_hbm_bytes_env_and_cpu(monkeypatch):
     assert capacity.device_hbm_bytes("cpu") == capacity.UNBOUNDED
 
 
+class FakeCard:
+    """One card's memory as ``torch.cuda.mem_get_info`` (``cudaMemGetInfo``) and
+    ``torch.cuda.memory_stats_as_nested_dict`` (the caching allocator)
+    report it, with a clock that moves only when a test moves it."""
+
+    def __init__(self, free, reserved=0, allocated=0):
+        self.free, self.reserved, self.allocated = free, reserved, allocated
+        self.free_reads = 0
+        self.now = 100.0
+
+    @property
+    def budget(self) -> int:
+        return self.free + self.reserved - self.allocated
+
+    def mem_get_info(self, device=None):
+        self.free_reads += 1
+        return self.free, 80 << 30
+
+    def stats(self, device=None):
+        return {"allocated_bytes": {"all": {"current": self.allocated}},
+                "reserved_bytes": {"all": {"current": self.reserved}}}
+
+    def allocate(self, nbytes, *, new_segment=True):
+        """The caching allocator hands out `nbytes`, from a new segment of
+        the card's free memory or from its reserved blocks."""
+        self.allocated += nbytes
+        if new_segment:
+            self.reserved += nbytes
+            self.free -= nbytes
+
+    def release(self, nbytes):
+        """Tensors of `nbytes` freed and their segments given back to the
+        card (``empty_cache``)."""
+        self.allocated -= nbytes
+        self.reserved -= nbytes
+        self.free += nbytes
+
+
+CARD = torch.device("cuda:0")
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """A fake card in place of the free-memory read and the allocator's
+    counts; the capacity module's clock, readings and count afresh."""
+    fake = FakeCard(free=40 << 30, reserved=2 << 30, allocated=1 << 30)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", fake.mem_get_info)
+    monkeypatch.setattr(torch.cuda, "memory_stats_as_nested_dict", fake.stats)
+    monkeypatch.setattr(capacity, "_clock", lambda: fake.now)
+    monkeypatch.setattr(capacity, "_readings", {})
+    monkeypatch.setattr(capacity, "budget_reads", 0)
+    monkeypatch.delenv("LFI_HBM_BYTES", raising=False)
+    return fake
+
+
+def _plan_or_error(v, method, focus_views, **kw):
+    try:
+        return capacity.plan_render(G, C, H, W, v, method=method, focus_views=focus_views,
+                                    **kw)
+    except ValueError as e:
+        return str(e)
+
+
+@pytest.mark.parametrize("method, k", [("TEN", 0), ("STD", 0), ("TEN", 8), ("STD", 8)],
+                         ids=["fixed_ten", "fixed_std", "allfocus_ten", "allfocus_std"])
+def test_the_cached_budget_plans_as_a_fresh_reading(card, method, k):
+    """Over the scan's budgets (one pass, view batches, refused): a reading
+    taken while the allocator held more, then tensors freed and segments
+    given back, plans exactly as a fresh reading would; free memory is read
+    again only where the render's peak is over half the budget."""
+    plans = _scan(64, method, k)
+    total = plans[0][1].bytes_unbatched
+    arms = set()
+    for b, _ in plans + [(plans[-1][0] // 2, None), (1, None)]:
+        card.free, card.reserved, card.allocated = b + (6 << 20), 3 << 20, 4 << 20
+        card.allocate(5 << 20)
+        capacity.device_hbm_bytes(CARD)  # the reading
+        card.release(5 << 20)
+        card.allocate(5 << 20, new_segment=False)
+        assert card.budget == b
+        reads = card.free_reads
+        got = _plan_or_error(64, method, k, device=CARD)
+        assert got == _plan_or_error(64, method, k, budget=b)
+        assert card.free_reads - reads == (2 * total > b)
+        arms.add("refused" if isinstance(got, str) else got.batched)
+    assert arms == {False, True, "refused"}
+
+
+def test_steady_calls_within_a_second_read_free_memory_once(card):
+    for _ in range(100):
+        plan = capacity.plan_render(G, C, H, W, 64, method="TEN", focus_views=8, device=CARD)
+        assert not plan.batched and plan.budget == card.budget - capacity._headroom(card.budget)
+        card.now += 0.0099
+    assert card.free_reads == capacity.budget_reads == 1
+
+
+@pytest.mark.parametrize("caller", ["plan_render", "check_capacity"])
+def test_a_peak_over_half_the_budget_reads_again(card, caller):
+    """The same rule for the plan and for the guard of the paths without
+    view batches (the stream, the fused quilt, a mesh rank's shard)."""
+    capacity.device_hbm_bytes(CARD)
+    half = card.budget // 2
+
+    def ask(peak):
+        if caller == "check_capacity":
+            capacity.check_capacity(peak, "a request", device=CARD)
+        else:  # a TEN render's peak is its views and their download copy
+            capacity.plan_render(1, 1, 1, 1, peak // 2, method="TEN", device=CARD)
+
+    ask(half - half % 2)
+    assert card.free_reads == 1
+    ask(half + 2)
+    assert card.free_reads == 2
+    ask(half - half % 2)
+    assert card.free_reads == 2
+
+
+@pytest.mark.parametrize("arm", ["batched", "refused"])
+def test_a_batched_or_refused_plan_reads_again_every_time(card, arm):
+    plans = _scan(64, "TEN", 8)
+    b = _first(plans, lambda p: p.batched)[0] if arm == "batched" else plans[-1][0] // 2
+    card.free, card.reserved, card.allocated = b, 0, 0
+    capacity.device_hbm_bytes(CARD)
+    for n in range(2, 5):
+        got = _plan_or_error(64, "TEN", 8, device=CARD)
+        assert got == _plan_or_error(64, "TEN", 8, budget=b)
+        assert isinstance(got, str) == (arm == "refused") and card.free_reads == n
+
+
+def test_a_reading_older_than_a_second_reads_again(card):
+    capacity.device_hbm_bytes(CARD)
+    card.now += capacity.READING_TTL_S
+    capacity.device_hbm_bytes(CARD, 0)
+    assert card.free_reads == 1
+    card.now += 1e-6
+    capacity.device_hbm_bytes(CARD, 0)
+    assert card.free_reads == 2
+    card.now += 0.5
+    capacity.device_hbm_bytes(CARD, 0)
+    assert card.free_reads == 2
+
+
+def test_allocated_growth_lowers_the_budget_without_a_reading(card):
+    before = capacity.device_hbm_bytes(CARD)
+    card.allocate(300 << 20, new_segment=False)  # from the allocator's reserved blocks
+    assert capacity.device_hbm_bytes(CARD, 0) == before - (300 << 20)
+    card.allocate(700 << 20)  # a new segment: free and reserved move together
+    assert capacity.device_hbm_bytes(CARD, 0) == before - (1000 << 20) == card.budget
+    assert card.free_reads == 1
+
+
+@pytest.mark.parametrize("source", ["env", "budget", "cpu"])
+def test_the_override_a_given_budget_and_the_cpu_never_read_the_card(card, monkeypatch,
+                                                                     source):
+    def no_reading(*args, **kwargs):
+        raise AssertionError("the card was read")
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", no_reading)
+    monkeypatch.setattr(torch.cuda, "memory_stats_as_nested_dict", no_reading)
+    kw = {"device": CARD}
+    if source == "env":
+        monkeypatch.setenv("LFI_HBM_BYTES", str(1 << 30))
+    elif source == "budget":
+        kw["budget"] = 1 << 30
+    else:
+        kw["device"] = "cpu"
+    for _ in range(3):
+        card.now += 5.0
+        b = capacity.UNBOUNDED if source == "cpu" else 1 << 30
+        plan = capacity.plan_render(G, C, H, W, 64, method="STD", focus_views=8, **kw)
+        assert plan.budget == b - capacity._headroom(b)
+        capacity.check_capacity(1 << 20, "a request", **kw)
+    assert capacity.budget_reads == 0
+
+
+def test_budget_reads_are_counted_and_reset(card):
+    from lfinterpolator_tpu_torch.utils import profiling
+
+    for _ in range(3):
+        capacity.device_hbm_bytes(CARD, 0)
+        card.now += 2.0
+    assert profiling.launch_counts()["capacity budget reads"] == 3 == card.free_reads
+    profiling.reset_launch_counts()
+    assert profiling.launch_counts()["capacity budget reads"] == 0
+
+
 def test_check_capacity_has_no_mesh_hint():
     capacity.check_capacity(100, "tiny", budget=1 << 30)
     with pytest.raises(ValueError, match="huge thing needs at least") as e:
