@@ -149,6 +149,8 @@ import subprocess
 import sys
 import time
 
+from lfinterpolator_tpu_torch.utils.profiling import event_ms
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRAJECTORY = "0,0,1,1"
 EFFECT = 3.0
@@ -272,19 +274,6 @@ def check_1lsb(torch, name, got, want, share=0.005) -> tuple[int, int]:
     return err, n
 
 
-def event_ms(torch, fn, runs: int = 10) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(runs):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / runs
-
-
 def phase3_kernel_vs_plain(torch, np, stack, smi) -> dict:
     from lfinterpolator_tpu_torch.ops import shift_blend
     from lfinterpolator_tpu_torch.state import to_device_state
@@ -317,16 +306,17 @@ def phase3_kernel_vs_plain(torch, np, stack, smi) -> dict:
             log("[3] a 64-row launch == rows 64-127 of a 192-row launch (torch.equal)")
         del got
         if focus == 0.1:
-            ms = event_ms(torch, lambda: shift_blend.shift_blend(images, weights, shifts))
+            ms = event_ms(lambda: shift_blend.shift_blend(images, weights, shifts))
             plain_ms = event_ms(
-                torch, lambda: shift_blend.shift_blend_reference(images, weights, shifts)
-            )
+                lambda: shift_blend.shift_blend_reference(images, weights, shifts))
             timing = (ms, plain_ms)
             log(f"[3] 8x8/1080p/64v: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
                 f"({smi})")
         del images
         torch.cuda.empty_cache()
-    log(f"[3] launches so far {shift_blend.launches}")
+    from lfinterpolator_tpu_torch.utils import profiling
+
+    log(f"[3] launches so far {profiling.launch_counts()['shift_blend']}")
     return {"max_abs_err": max_err, "ms": timing[0], "plain_ms": timing[1]}
 
 
@@ -370,18 +360,18 @@ def seeded_light_field(np):
 
 def phase5_api(torch, np, lf, smi) -> tuple:
     from lfinterpolator_tpu_torch.api import Interpolator
-    from lfinterpolator_tpu_torch.ops import shift_blend
+    from lfinterpolator_tpu_torch.utils import profiling
 
     interp = Interpolator(lf, device="cuda", progress=False)
-    shift_blend.launches = 0  # count only the main path's launches
+    before = profiling.launch_counts()  # count only the main path's launches
     ten = interp.interpolate(TRAJECTORY, focus=0.1, method="TEN",
                              benchmark_runs=20, progress=False)
-    launches = shift_blend.launches
+    launches = (profiling.launch_counts() - before)["shift_blend"]
     if launches < 1:
         raise AssertionError("the TEN render launched the kernel no time")
     std = interp.interpolate(TRAJECTORY, focus=0.1, method="STD",
                              benchmark_runs=20, progress=False)
-    if shift_blend.launches != launches:
+    if (profiling.launch_counts() - before)["shift_blend"] != launches:
         raise AssertionError("the STD render launched the kernel")
     del interp
     torch.cuda.empty_cache()
@@ -477,7 +467,7 @@ def slow_share(torch, p) -> float:
     """The share of (candidate, pixel) pairs that the exact rule's clean
     flags send down the nine-tap loop, for the host params `p` (CPU ops)."""
     from lfinterpolator_tpu_torch.ops import focus_torch
-    from lfinterpolator_tpu_torch.state import FocusTables
+    from lfinterpolator_tpu_torch.ops.estimate_geometry import FocusTables
 
     return focus_torch.slow_share(*focus_torch.clean_flags(
         torch.from_numpy(p.offsets[p.focus_ids]),
@@ -544,9 +534,8 @@ def phase7_estimate_vs_plain(torch, np, stack, smi) -> tuple:
     timed = {}
     for rule, exact in (("exact", True), ("fast", False)):
         args = (*base, exact)
-        ms = event_ms(torch, lambda: focus_estimate.focus_estimate(*args), runs=5)
-        plain_ms = event_ms(
-            torch, lambda: focus_estimate.focus_estimate_reference(*args), runs=2)
+        ms = event_ms(lambda: focus_estimate.focus_estimate(*args), runs=5)
+        plain_ms = event_ms(lambda: focus_estimate.focus_estimate_reference(*args), runs=2)
         parts = focus_estimate.pass_times(*args)
         timed[rule] = {"ms": ms, "plain_ms": plain_ms, **parts}
         log(f"[7] {rule}: kernels == plain on {maps[rule].numel()} map bytes "
@@ -561,7 +550,7 @@ def phase7_estimate_vs_plain(torch, np, stack, smi) -> tuple:
     pw, _, offsets_w, ids_w, tables_w = allfocus_setup(worst, 0.3, COLS, ROWS, H, W)
     args_w = (selected, offsets_w[ids_w], tables_w, pw.radius)
     estimate_equal(torch, f"at focus {worst}", args_w, errs)
-    worst_ms = event_ms(torch, lambda: focus_estimate.focus_estimate(*args_w), runs=5)
+    worst_ms = event_ms(lambda: focus_estimate.focus_estimate(*args_w), runs=5)
     log(f"[7] slow share by focus {shares}: at focus {worst} both rules == plain; "
         f"exact estimate {worst_ms:.3f} ms ({smi})")
     # a coherent scene: three textured planes at candidates of the search
@@ -605,12 +594,11 @@ def phase8_allfocus_vs_plain(torch, smi, state7) -> dict:
             f"plain, {differ} bytes differ")
         del got
         if timing is None:
-            ms = event_ms(torch, lambda: allfocus_blend.allfocus_blend(*args))
-            plain_ms = event_ms(
-                torch, lambda: allfocus_blend.allfocus_blend_reference(*args), runs=3)
+            ms = event_ms(lambda: allfocus_blend.allfocus_blend(*args))
+            plain_ms = event_ms(lambda: allfocus_blend.allfocus_blend_reference(*args), runs=3)
             timing = (ms, plain_ms)
             flat = torch.full_like(fmap, int(fmap[H // 2, W // 2]))
-            flat_ms = event_ms(torch, lambda: allfocus_blend.allfocus_blend(
+            flat_ms = event_ms(lambda: allfocus_blend.allfocus_blend(
                 images, weights, offsets, flat, tables.decode))
             log(f"[8] 8x8/1080p/64v: kernel {ms:.3f} ms on this map (per-pixel noise: "
                 f"every gather its own sector), {flat_ms:.3f} ms on a constant map; "
@@ -708,25 +696,23 @@ def phase9_new_kernels_vs_oracle(torch, np) -> None:
 def phase10_allfocus_api(torch, np, lf, smi) -> tuple:
     from lfinterpolator_tpu_torch import RenderConfig
     from lfinterpolator_tpu_torch.api import Interpolator
-    from lfinterpolator_tpu_torch.ops import (
-        allfocus_blend, blend_torch, focus_estimate, focus_torch)
+    from lfinterpolator_tpu_torch.ops import blend_torch, focus_torch
+    from lfinterpolator_tpu_torch.utils import profiling
 
     interps = {exact: Interpolator(lf, device="cuda", progress=False,
                                    config=RenderConfig(exact_focus_taps=exact))
                for exact in (True, False)}
     runs = (("TEN", "TEN", True), ("STD", "STD", True), ("TEN fast", "TEN", False))
-    # count only the main path's launches
-    focus_estimate.launches.update(exact=0, fast=0)
-    allfocus_blend.launches = 0
+    before = profiling.launch_counts()  # count only the main path's launches
     results = {
         name: interps[exact].interpolate(TRAJECTORY, focus=0.1, focus_range=0.3,
                                          method=method, benchmark_runs=5,
                                          progress=False)
         for name, method, exact in runs
     }
-    launches = {"focus_estimate_exact": focus_estimate.launches["exact"],
-                "focus_estimate_fast": focus_estimate.launches["fast"],
-                "allfocus_blend": allfocus_blend.launches}
+    counted = profiling.launch_counts() - before
+    launches = {k: counted[k] for k in ("focus_estimate_exact", "focus_estimate_fast",
+                                        "allfocus_blend")}
     log(f"[10] kernel launches in the all-focus renders: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the all-focus path never ran: {launches}")
@@ -804,10 +790,10 @@ def phase12_presence_vs_plain(torch, np, smi) -> tuple:
     err = check_equal(torch, "focus_estimate (presence)",
                       focus_estimate.focus_estimate(*args, True, pres, plan),
                       focus_torch.estimate_presence(*args, pres, plan))
-    ms = event_ms(torch, lambda: focus_estimate.focus_estimate(*args, True, pres, plan),
+    ms = event_ms(lambda: focus_estimate.focus_estimate(*args, True, pres, plan),
                   runs=5)
-    exact_ms = event_ms(torch, lambda: focus_estimate.focus_estimate(*args), runs=5)
-    plain_ms = event_ms(torch, lambda: focus_torch.estimate_presence(*args, pres, plan),
+    exact_ms = event_ms(lambda: focus_estimate.focus_estimate(*args), runs=5)
+    plain_ms = event_ms(lambda: focus_torch.estimate_presence(*args, pres, plan),
                         runs=2)
     log(f"[12] {plan}; random presence table, density {density}: kernel == "
         f"plain on {H * W} map bytes; kernel {ms:.3f} ms, exact sweep {exact_ms:.3f} "
@@ -862,11 +848,11 @@ def phase13_pyramid_vs_plain(torch, np, smi) -> None:
     density = presence_density(torch, pres, plan.sc, len(cands))
     exact = focus_estimate.focus_estimate(*args)
     agree = float((got == exact).float().mean())
-    ms = event_ms(torch, lambda: focus_estimate.focus_estimate_pyramid(*args, plan), runs=5)
-    coarse_ms = event_ms(torch, lambda: focus_estimate.focus_estimate(
+    ms = event_ms(lambda: focus_estimate.focus_estimate_pyramid(*args, plan), runs=5)
+    coarse_ms = event_ms(lambda: focus_estimate.focus_estimate(
         selected[:, :, ::s, ::s], offsets[ids] / s, tables, plan.radius_c), runs=5)
-    exact_ms = event_ms(torch, lambda: focus_estimate.focus_estimate(*args), runs=5)
-    plain_ms = event_ms(torch, lambda: focus_torch.estimate_pyramid(*args, plan), runs=1)
+    exact_ms = event_ms(lambda: focus_estimate.focus_estimate(*args), runs=5)
+    plain_ms = event_ms(lambda: focus_torch.estimate_pyramid(*args, plan), runs=1)
     log(f"[13] three-plane scene (planes {planes.tolist()}): pyramid kernels == plain "
         f"(max err {err}); presence density {density}; map == exact sweep on "
         f"{agree:.6f} of pixels; pyramid {ms:.3f} ms (coarse pass {coarse_ms:.3f} ms), "
@@ -880,13 +866,15 @@ def phase14_pyramid_api(torch, np, lf, smi) -> int:
     from lfinterpolator_tpu_torch import RenderConfig
     from lfinterpolator_tpu_torch.api import Interpolator
     from lfinterpolator_tpu_torch.ops import blend_torch, focus_estimate, focus_torch
+    from lfinterpolator_tpu_torch.utils import profiling
 
     interp = Interpolator(lf, device="cuda", progress=False,
                           config=RenderConfig(focus_pyramid=True))
-    focus_estimate.launches.update(exact=0, fast=0, pyramid=0)  # the main path's
+    before = profiling.launch_counts()  # the main path's
     res = interp.interpolate(TRAJECTORY, focus=0.1, focus_range=0.3, method="TEN",
                              benchmark_runs=5, progress=False)
-    launches = dict(focus_estimate.launches)
+    counted = profiling.launch_counts() - before
+    launches = {rule: counted[f"focus_estimate_{rule}"] for rule in ("exact", "fast", "pyramid")}
     log(f"[14] estimate kernel launches in the pyramid renders: {launches}")
     if launches["pyramid"] < 1 or launches["exact"] != launches["pyramid"]:
         raise AssertionError(f"the pyramid path did not run its kernels: {launches}")
@@ -943,9 +931,9 @@ def phase15_quilt_blend_vs_plain(torch, np, smi) -> tuple:
     rule = check_rule(torch, "quilt_blend", tiles,
                       blend_torch.shift_stack(args[0], args[2]), args[1][:45])
     del got, tiles
-    ms = event_ms(torch, lambda: quilt.quilt_blend(*args))
-    blend_ms = event_ms(torch, lambda: shift_blend.shift_blend(*args))
-    plain_ms = event_ms(torch, lambda: quilt.quilt_blend_reference(*args), runs=3)
+    ms = event_ms(lambda: quilt.quilt_blend(*args))
+    blend_ms = event_ms(lambda: shift_blend.shift_blend(*args))
+    plain_ms = event_ms(lambda: quilt.quilt_blend_reference(*args), runs=3)
     log(f"[15] quilt_blend tiles == shift_blend views (torch.equal); near-tie rule holds "
         f"on {rule['bytes']} canvas bytes ({rule['lax']} in the lax band); <= 1 LSB from "
         f"plain, {differ} bytes differ; kernel "
@@ -961,8 +949,8 @@ def phase16_quilt_copy_vs_plain(torch, np, tiles, smi) -> dict:
 
     err = check_equal(torch, "quilt_copy", quilt.quilt_copy(tiles),
                       quilt_torch.montage(tiles, 5, 9))
-    ms = event_ms(torch, lambda: quilt.quilt_copy(tiles))
-    plain_ms = event_ms(torch, lambda: quilt_torch.montage(tiles, 5, 9))
+    ms = event_ms(lambda: quilt.quilt_copy(tiles))
+    plain_ms = event_ms(lambda: quilt_torch.montage(tiles, 5, 9))
     moved = 2 * 45 * 3 * H * W
     log(f"[16] quilt_copy == plain on {moved // 2} canvas bytes; kernel {ms:.3f} ms "
         f"({moved / ms / 1e9:.3f} TB/s of reads + writes), plain {plain_ms:.3f} ms "
@@ -983,19 +971,20 @@ def phase17_render_quilt(torch, np, lf, smi) -> dict:
     copy), each timed over 10 runs, launches counted; the quilts equal each
     other and the montage of the TEN render's views."""
     from lfinterpolator_tpu_torch.api import Interpolator
-    from lfinterpolator_tpu_torch.ops import quilt
+    from lfinterpolator_tpu_torch.utils import profiling
 
     interp = Interpolator(lf, device="cuda", progress=False)
     launches = {}
     results = {}
     for name, method, key in (("fused", "TEN", "quilt_blend"),
                               ("two-stage", "STD", "quilt_copy")):
-        quilt.launches.update(quilt_blend=0, quilt_copy=0)  # the main path's
+        before = profiling.launch_counts()  # the main path's
         results[name] = interp.render_quilt(TRAJECTORY, focus=0.1, method=method,
                                             benchmark_runs=10, progress=False)
-        launches[key] = quilt.launches[key]
+        counted = profiling.launch_counts() - before
+        launches[key] = counted[key]
         if launches[key] < 1 or results[name].fused is not (name == "fused"):
-            raise AssertionError(f"{name} quilt: launches {dict(quilt.launches)}, "
+            raise AssertionError(f"{name} quilt: launches {dict(counted)}, "
                                  f"fused {results[name].fused}")
     fused, two = results["fused"].quilt, results["two-stage"].quilt
     if fused.shape != (9 * H, 5 * W, 3):
@@ -1102,7 +1091,7 @@ def phase19_download(torch, np, lf, smi) -> dict:
     pageable_t, pageable = wall_ms(torch, lambda: hwc.cpu().numpy())
     kept = torch.empty(hwc.shape, dtype=torch.uint8, pin_memory=True)
     kept_t, _ = wall_ms(torch, lambda: kept.copy_(hwc).numpy().copy())
-    d2h = event_ms(torch, lambda: kept.copy_(hwc, non_blocking=True), runs=5)
+    d2h = event_ms(lambda: kept.copy_(hwc, non_blocking=True), runs=5)
     del kept
     dl = transfer.Downloader("cuda")
     first_t, got = wall_ms(torch, lambda: dl.start(views).wait(), runs=1)
@@ -1132,6 +1121,7 @@ def phase20_stream(torch, np, stack, smi) -> dict:
     measured alone."""
     from lfinterpolator_tpu_torch import RenderConfig, StreamingRenderer
     from lfinterpolator_tpu_torch.ops import blend_torch, shift_blend
+    from lfinterpolator_tpu_torch.utils import profiling
     from lfinterpolator_tpu_torch.utils import transfer
 
     frames = [np.roll(stack, 16 * t, axis=2) for t in range(8)]
@@ -1147,13 +1137,12 @@ def phase20_stream(torch, np, stack, smi) -> dict:
 
     # The first pass also allocates the pinned input buffers and the
     # pinned outputs the host allocator caches for the next frames.
-    shift_blend.launches = shift_blend.stream_launches = 0  # the main path's
+    before = profiling.launch_counts()  # the main path's
     first = stream_s()
     total = stream_s()
-    launches = shift_blend.stream_launches
-    if launches != 2 * len(frames) or shift_blend.launches:
-        raise AssertionError(f"{launches} streamed and {shift_blend.launches} other "
-                             f"shift_blend launches for 2 x {len(frames)} frames")
+    launches = (profiling.launch_counts() - before)["shift_blend"]
+    if launches != 2 * len(frames):
+        raise AssertionError(f"{launches} shift_blend launches for 2 x {len(frames)} frames")
     outs = list(sr.render_stream(frames))  # again, kept for the check
     max_err = differ = 0
     for t, (frame, out) in enumerate(zip(frames, outs)):
@@ -1175,12 +1164,12 @@ def phase20_stream(torch, np, stack, smi) -> dict:
     host_np_t, _ = wall_ms(torch, lambda: np.copyto(pinned.numpy(), frames[1]))
     host_ms = sum(host_t) / len(host_t)
     dev = torch.empty(pinned.shape, dtype=torch.uint8, device="cuda")
-    upload_ms = event_ms(torch, lambda: dev.copy_(pinned, non_blocking=True), runs=5)
+    upload_ms = event_ms(lambda: dev.copy_(pinned, non_blocking=True), runs=5)
     planar = blend_torch.to_planar(dev)
-    render_ms = event_ms(torch, lambda: shift_blend.shift_blend(
+    render_ms = event_ms(lambda: shift_blend.shift_blend(
         blend_torch.to_planar(dev), sr.weights, sr.shifts), runs=5)
-    kernel_ms = event_ms(torch, lambda: shift_blend.shift_blend(planar, sr.weights, sr.shifts))
-    plain_ms = event_ms(torch, lambda: shift_blend.shift_blend_reference(
+    kernel_ms = event_ms(lambda: shift_blend.shift_blend(planar, sr.weights, sr.shifts))
+    plain_ms = event_ms(lambda: shift_blend.shift_blend_reference(
         planar, sr.weights, sr.shifts), runs=3)
     views = shift_blend.shift_blend(planar, sr.weights, sr.shifts)
     dl = transfer.Downloader("cuda")
@@ -1301,7 +1290,7 @@ def phase23_batch(torch, np, lf, smi) -> dict:
     one has another; fixed TEN and all-focus TEN. Each result equals its
     solo interpolate; one blend launch and one estimate per group."""
     from lfinterpolator_tpu_torch.api import Interpolator
-    from lfinterpolator_tpu_torch.ops import allfocus_blend, focus_estimate, shift_blend
+    from lfinterpolator_tpu_torch.utils import profiling
 
     trajs = ["0,0,1,1", "0.2,0.2,0.8,0.8", "1,0,0,1", "0,0.5,1,0.5", "0,0,0.5,0.5"]
     interp = Interpolator(lf, device="cuda", progress=False)
@@ -1310,15 +1299,14 @@ def phase23_batch(torch, np, lf, smi) -> dict:
             ("fixed", dict(focus=0.1), {"shift_blend": 2}),
             ("all-focus", dict(focus=0.1, focus_range=0.3),
              {"focus_estimate_exact": 2, "allfocus_blend": 2})):
-        shift_blend.launches = allfocus_blend.launches = 0  # the main path's
-        focus_estimate.launches.update(exact=0)
+        before = profiling.launch_counts()  # the main path's
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         batch = interp.interpolate_batch(trajs, method="TEN", progress=False, **kw)
         batch_s = time.perf_counter() - t0
-        launches = {"shift_blend": shift_blend.launches,
-                    "focus_estimate_exact": focus_estimate.launches["exact"],
-                    "allfocus_blend": allfocus_blend.launches}
+        counted = profiling.launch_counts() - before
+        launches = {k: counted[k] for k in ("shift_blend", "focus_estimate_exact",
+                                            "allfocus_blend")}
         if {k: v for k, v in launches.items() if v} != want:
             raise AssertionError(f"{name} batch launches {launches}, expected {want}")
         t0 = time.perf_counter()
@@ -1343,15 +1331,14 @@ def phase24_view_batches(torch, np, lf, smi) -> dict:
     all in focus, of at least 3 batches: equal to the one-pass render."""
     from lfinterpolator_tpu_torch.api import Interpolator
     from lfinterpolator_tpu_torch.core import capacity
-    from lfinterpolator_tpu_torch.ops import allfocus_blend, shift_blend
+    from lfinterpolator_tpu_torch.utils import profiling
 
     interp = Interpolator(lf, device="cuda", progress=False)
     budget = 700 * 10**6
     stats = {}
-    for name, kw, k, counter in (
-            ("fixed", dict(focus=0.1), 0, lambda: shift_blend.launches),
-            ("all-focus", dict(focus=0.1, focus_range=0.3), 32,
-             lambda: allfocus_blend.launches)):
+    for name, kw, k, kernel in (("fixed", dict(focus=0.1), 0, "shift_blend"),
+                                ("all-focus", dict(focus=0.1, focus_range=0.3), 32,
+                                 "allfocus_blend")):
         one_t, ref = wall_ms(torch, lambda: interp.interpolate(
             TRAJECTORY, method="TEN", progress=False, **kw), runs=2)
         plan = capacity.plan_render(COLS * ROWS, 3, H, W, VIEWS, method="TEN",
@@ -1361,13 +1348,14 @@ def phase24_view_batches(torch, np, lf, smi) -> dict:
             raise AssertionError(f"{name}: the forced plan has {nb} batches")
         os.environ["LFI_HBM_BYTES"] = str(budget)
         try:
-            before = counter()
+            before = profiling.launch_counts()
             batched_t, out = wall_ms(torch, lambda: interp.interpolate(
                 TRAJECTORY, method="TEN", progress=False, **kw), runs=2)
         finally:
             del os.environ["LFI_HBM_BYTES"]
-        if counter() - before != 2 * nb:
-            raise AssertionError(f"{name}: {counter() - before} launches for 2 x {nb} batches")
+        launched = (profiling.launch_counts() - before)[kernel]
+        if launched != 2 * nb:
+            raise AssertionError(f"{name}: {launched} launches for 2 x {nb} batches")
         if not (np.array_equal(out.views, ref.views)
                 and (ref.maps is None or np.array_equal(out.maps, ref.maps))):
             raise AssertionError(f"{name}: the view-batched render != the one-pass render")
@@ -1396,13 +1384,13 @@ def phase25_library(torch, np, stack, smi) -> dict:
     x16 = blend_torch.shift_stack(images, shifts).reshape(COLS * ROWS, -1).half()
     del images
     w16 = weights.half()
-    f16 = {v: event_ms(torch, lambda v=v: torch.matmul(w16[:v], x16)) for v in (VIEWS, 45)}
+    f16 = {v: event_ms(lambda v=v: torch.matmul(w16[:v], x16)) for v in (VIEWS, 45)}
     x32 = x16.float()
     del x16
-    f32 = event_ms(torch, lambda: blend_torch.matmul_f32(weights, x32), runs=5)
+    f32 = event_ms(lambda: blend_torch.matmul_f32(weights, x32), runs=5)
     del x32
     tiles = torch.from_numpy(stack[:45]).cuda().permute(0, 3, 1, 2).contiguous()
-    copy = event_ms(torch, lambda: tiles.reshape(9, 5, 3, H, W).permute(2, 0, 3, 1, 4)
+    copy = event_ms(lambda: tiles.reshape(9, 5, 3, H, W).permute(2, 0, 3, 1, 4)
                     .contiguous())
     del tiles
     torch.cuda.empty_cache()
@@ -1435,6 +1423,16 @@ def launched(name: str, counts: dict, needed) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
+def slice6_launches(name: str, run: dict) -> int:
+    """One kernel's launches on one path of phases 26-29: K2's are the
+    shift_blend launches of the path's streamed frames, counted apart
+    (``stream_launches``), and K1's the path's other shift_blend launches."""
+    streamed = run["stream_launches"].get("shift_blend", 0)
+    if name == "shift_blend (stream)":
+        return streamed
+    return run["launches"].get(name, 0) - (streamed if name == "shift_blend" else 0)
+
+
 def phase26_gate_start() -> tuple:
     """Start the quality gate's three runs on the card, each a subprocess."""
     runs = {"plane": ["--scene", "plane"], "occlusion": ["--scene", "occlusion"],
@@ -1457,7 +1455,7 @@ def phase26_gate(started, smi) -> dict:
     """The quality gate's three runs, read: every gated row >= 45 dB, the
     maps equal to the oracle's, the kernels of the path launched."""
     t0, work, procs = started
-    out, launches = {}, {}
+    out, launches, stream = {}, {}, {}
     for name, proc in procs.items():
         proc.wait(timeout=900)
         with open(os.path.join(work, f"{name}.out")) as f_out, \
@@ -1473,12 +1471,16 @@ def phase26_gate(started, smi) -> dict:
             raise AssertionError(f"the gate ({name}) failed: {payload}")
         if (name == "pyramid") != ("pyramid/TEN" in payload["psnr_db"]):
             raise AssertionError(f"the gate ({name}): pyramid row {payload['psnr_db']}")
-        needed = ["shift_blend", "shift_blend (stream)", "allfocus_blend",
-                  "focus_estimate_exact", "focus_estimate_fast", "quilt_blend"]
+        needed = ["shift_blend", "allfocus_blend", "focus_estimate_exact",
+                  "focus_estimate_fast", "quilt_blend"]
         launched(f"the gate ({name})", payload["launches"],
                  needed + ["focus_estimate_pyramid"] * (name == "pyramid"))
+        launched(f"the gate's streamed frames ({name})", payload["stream_launches"],
+                 ["shift_blend", "allfocus_blend"])
         for k, v in payload["launches"].items():
             launches[k] = launches.get(k, 0) + v
+        for k, v in payload["stream_launches"].items():
+            stream[k] = stream.get(k, 0) + v
         out[name] = {k: payload[k] for k in ("psnr_db", "size", "grid")}
         if "pyramid_map_bytes_differ" in payload:
             out[name]["pyramid_map_bytes_differ"] = payload["pyramid_map_bytes_differ"]
@@ -1490,8 +1492,8 @@ def phase26_gate(started, smi) -> dict:
             + f"pass ({smi})")
     shutil.rmtree(work, ignore_errors=True)
     log(f"[26] the gate's 3 runs ended {time.perf_counter() - t0:.1f} s after their start; "
-        f"launches {launches}")
-    return {"runs": out, "launches": launches}
+        f"launches {launches}, of them in the streamed frames {stream}")
+    return {"runs": out, "launches": launches, "stream_launches": stream}
 
 
 def phase29_8k(torch, smi) -> dict:
@@ -1519,7 +1521,7 @@ def phase29_8k(torch, smi) -> dict:
         f"{ten['steady_call_s']:.3f} s; {json.dumps(ten['phases_ms'])} ms; band check "
         f"rows {ten['verify']['rows']} passed; host peak {res['host_peak_rss_gib']:.1f} GiB; "
         f"launches {launches} ({smi})")
-    return {"result": res, "launches": launches}
+    return {"result": res, "launches": launches, "stream_launches": {}}  # streams nothing
 
 
 def phase27_map_refresh(smi) -> dict:
@@ -1545,7 +1547,7 @@ def phase27_map_refresh(smi) -> dict:
     launches = launched("the map-refresh harness", profiling.launch_counts(),
                         ["focus_estimate_exact", "allfocus_blend"])
     log(f"[27] launches {launches}")
-    return {"results": out, "launches": launches}
+    return {"results": out, "launches": launches, "stream_launches": launches}  # all streamed
 
 
 def phase28_render_video(np) -> dict:
@@ -1581,7 +1583,7 @@ def phase28_render_video(np) -> dict:
             raise AssertionError("the video script failed")
     stats = json.loads(text.getvalue().strip().splitlines()[-1])
     launches = launched("the video script", profiling.launch_counts(),
-                        ["shift_blend (stream)"])
+                        ["shift_blend"])
     sr = StreamingRenderer(cols, rows, w, h, TRAJECTORY,
                            config=RenderConfig(method="TEN", focus=0.1))
     for t, views in enumerate(sr.render_stream(frames)):
@@ -1604,7 +1606,7 @@ def phase28_render_video(np) -> dict:
         f"{stats['total_s']:.2f} s ({stats['fps']:.3f} fps; decode {stats['decode_s']:.2f} s, "
         f"encode {stats['encode_s']:.2f} s summed over the writer threads); they decode "
         f"equal to the stream's views; --resume skipped all 3; launches {launches}")
-    return {"stats": stats, "launches": launches}
+    return {"stats": stats, "launches": launches, "stream_launches": launches}  # all streamed
 
 
 # -- phase 32: multi-GPU rendering (slice 5) ---------------------------------
@@ -1793,7 +1795,7 @@ def phase32_mesh(torch, np, lf, smi) -> dict:
                                        progress=False)
     set_taps(one, True)
     cfg, key = one._config(0.1, 0.3, "TEN", None, None)
-    one_ms = event_ms(torch, one._render_step(TRAJECTORY, cfg, key, False), runs=5)
+    one_ms = event_ms(one._render_step(TRAJECTORY, cfg, key, False), runs=5)
     del one
     torch.cuda.empty_cache()
 
@@ -1824,7 +1826,7 @@ def phase32_mesh(torch, np, lf, smi) -> dict:
         for t, a, b in zip(MESH_TRAJECTORIES, got_batch, want_batch):
             if not np.array_equal(a.views, b.views):
                 raise AssertionError(f"(1, 1) mesh batch result for {t} != one device")
-        mesh_ms = event_ms(torch, meshed._render_step(TRAJECTORY, cfg, key, False), runs=5)
+        mesh_ms = event_ms(meshed._render_step(TRAJECTORY, cfg, key, False), runs=5)
         nccl_peaks = {"fixed TEN": mesh_peaks(torch, meshed, 0.0),
                       "all-focus TEN": mesh_peaks(torch, meshed, 0.3)}
         del meshed
@@ -1902,8 +1904,8 @@ def wide_row(torch, name, kernel_fn, plain_fn, got, stack, weights, nbytes, smi)
     rule = check_rule(torch, f"{name} at 17x17/1024^2", got, stack, weights)
     err, differ = check_1lsb(torch, f"{name} against plain at 17x17/1024^2", got,
                              plain_fn())
-    ms = event_ms(torch, kernel_fn)
-    plain_ms = event_ms(torch, plain_fn, runs=3)
+    ms = event_ms(kernel_fn)
+    plain_ms = event_ms(plain_fn, runs=3)
     g, n = weights.shape[1], 3 * WIDE_HW * WIDE_HW
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **bound(nbytes, 2 * VIEWS * g * n, "fp16")}
@@ -1945,13 +1947,12 @@ def phase33_wide_grid(torch, np, smi) -> list:
         res = interp.interpolate(TRAJECTORY, method="TEN", benchmark_runs=5,
                                  progress=False, **kw)
         counts = profiling.launch_counts()
-        launches, ran = counts[kernel], counts[f"{kernel} passes"]
-        if launches < 1 or ran != launches * passes:
-            raise AssertionError(f"{kernel}: {launches} launches ran {ran} passes, "
-                                 f"not {passes} each")
+        launches = counts[kernel]
+        if launches < 1:
+            raise AssertionError(f"{kernel} was launched no time: {dict(counts)}")
         log(f"[33] {kernel}: {res.avg_ms:.3f} ms/frame over 5 runs; launches "
-            f"{ {k: v for k, v in counts.items() if v} } ({smi})")
-        return res, {"launches": launches, "passes": ran}
+            f"{dict(counts)}, {passes} passes each ({smi})")
+        return res, {"launches": launches, "passes": launches * passes}
 
     res, counts = counted("shift_blend", focus=WIDE_FOCUS)
     wm, fo = render_params(TRAJECTORY, cols=WIDE, rows=WIDE, height=hw, width=hw,
@@ -2141,11 +2142,9 @@ def main() -> int:
          "library": "tiles.reshape(9, 5, C, H, W).permute(2, 0, 3, 1, 4).contiguous()"},
     ]
     kernels += wide
-    # phases 26-29, each path's own count (shift_blend's streamed launches,
-    # K2's counterpart, are counted apart from its other launches)
     for kernel in kernels:
-        kernel["launches_slice6"] = {
-            path: r["launches"].get(kernel["name"], 0) for path, r in slice6.items()}
+        kernel["launches_slice6"] = {  # phases 26-29, each path's own count
+            path: slice6_launches(kernel["name"], r) for path, r in slice6.items()}
         # phase 32: the (1, 1) NCCL mesh's launches and each gloo rank's
         kernel["launches_mesh"] = {
             "nccl_1x1": mesh_run["nccl"]["launches"].get(kernel["name"], 0),

@@ -36,9 +36,9 @@ cached budget could give another answer than a fresh reading:
     allocator (another process, NCCL, the CUDA context) goes unseen.
 
 One rule for every caller: ``plan_render`` and ``check_capacity`` (the
-stream, the fused quilt, a mesh rank's shard) share it. ``budget_reads``
-counts the free-memory readings (``profiling.launch_counts``' ``capacity
-budget reads``), each inside an ``lfi.plan.read`` span.
+stream, the fused quilt, a mesh rank's shard) share it. Each free-memory
+reading counts as ``capacity budget reads`` (``profiling.launch_counts``)
+and runs inside an ``lfi.plan.read`` span.
 
 What a render holds beyond the stack, uint8 unless noted (``plan_render``):
 
@@ -79,8 +79,6 @@ UNBOUNDED = 1 << 62
 #: Seconds a reading of free + reserved serves (module docstring).
 READING_TTL_S = 1.0
 
-#: Free-memory readings made (``cudaMemGetInfo``), for ``profiling.launch_counts``.
-budget_reads = 0
 #: The device's free + reserved bytes at its last free-memory reading, and the
 #: reading's time on ``_clock``, by device index. A fact of the process
 #: (every caller on a device shares its memory), so kept per module.
@@ -96,11 +94,10 @@ def _read(index: int) -> int:
     """One free-memory reading of device `index`, kept in ``_readings``: -> its
     budget. The allocator's counts come from its nested statistics, without
     ``torch.cuda.memory_stats``' flattening."""
-    global budget_reads
     with profiling.span("lfi.plan.read"):
         free, _ = torch.cuda.mem_get_info(index)
         stats = torch.cuda.memory_stats_as_nested_dict(index)
-    budget_reads += 1
+    profiling.count("capacity budget reads")
     held = free + _current(stats, "reserved_bytes")
     _readings[index] = (held, _clock())
     return held - _current(stats, "allocated_bytes")

@@ -32,9 +32,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.estimate_geometry import Pyramid
-from ..state import FocusTables
 from ..ops import allfocus_blend, blend_torch, focus_estimate, focus_torch, shift_blend
+from ..ops.estimate_geometry import FocusTables, Pyramid
 from ..utils import profiling
 
 
@@ -43,17 +42,15 @@ def render_fixed_focus(
     weights: torch.Tensor,  # [V, G] float32
     shifts: torch.Tensor,  # [G, 2] int32 (dx, dy)
     method: str = "STD",
-    streamed: bool = False,
     row_start: int = 0,
     row_count: int | None = None,
 ) -> torch.Tensor:
-    """Fixed-focus render of a block of rows -> [V, C, hb, W] uint8.
-    `streamed`: a stream's frame (its kernel launch counts as the stream's)."""
+    """Fixed-focus render of a block of rows -> [V, C, hb, W] uint8."""
     with profiling.span("lfi.blend"):
         if method == "STD":
             return blend_torch.render_fixed(images, weights, shifts, row_start, row_count)
         if method in ("TEN", "TEN_WM"):
-            return shift_blend.shift_blend(images, weights, shifts, streamed=streamed,
+            return shift_blend.shift_blend(images, weights, shifts,
                                            row_start=row_start, row_count=row_count)
     raise ValueError(f"unknown method {method!r}: use 'STD' or 'TEN'/'TEN_WM'")
 

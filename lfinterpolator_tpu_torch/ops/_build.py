@@ -8,6 +8,11 @@ root of the checkout, loaded with ``ctypes``. Nothing here runs at import
 time, and nothing is taken from outside the checkout but ``nvcc`` itself
 (found on ``PATH``, else under ``$CUDA_HOME`` or ``/usr/local/cuda``).
 
+``launch`` is the one caller of an entry that launches work: the entries'
+C signatures, their stream argument and their error codes are known here
+alone. The wrappers call the limit queries (``lfi_*_max_grid``,
+``lfi_blend_grid_passes``, ...) on ``load()`` directly.
+
 A library newer than every source and header is reused, so a second
 process (the CLI after a script that already built) does not compile
 again. A failed build raises with nvcc's own stderr and leaves nothing
@@ -24,6 +29,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -189,3 +196,17 @@ def load() -> ctypes.CDLL:
             lib.lfi_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def launch(entry: str, device, *args) -> None:
+    """Call the C entry `entry` with `args` and `device`'s current stream
+    as its last argument, with `device` current. Raises RuntimeError with
+    the CUDA error's text unless the launch was taken."""
+    lib = load()
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{entry} launch failed: CUDA error {err} "
+            f"({lib.lfi_cuda_error_string(err).decode()})"
+        )

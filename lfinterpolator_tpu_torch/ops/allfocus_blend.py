@@ -35,14 +35,8 @@ from __future__ import annotations
 
 import torch
 
-from . import blend_torch
-
-#: Kernel launches since import (or since a caller reset it to 0). Counts
-#: only launches of the CUDA kernel, never plain-version calls. ``passes``
-#: counts the passes over the images those launches ran (as
-#: ``shift_blend.passes``).
-launches = 0
-passes = 0
+from ..utils import profiling
+from . import _build, blend_torch
 
 allfocus_blend_reference = blend_torch.render_allfocus
 
@@ -98,15 +92,13 @@ def allfocus_blend(
 ) -> torch.Tensor:
     """All-in-focus render of rows [row_start, row_start + row_count) ->
     [V, C, hb, W] uint8 (kernel on CUDA tensors; the defaults: the frame).
-    The weights must be fp16-valued (see the module's docstring)."""
-    global launches, passes
+    The weights must be fp16-valued (see the module's docstring). A launch
+    counts as ``allfocus_blend`` (``profiling.launch_counts``)."""
     r0, hb = _check(images, weights, offsets, fmap, decode, row_start, row_count)
     if images.device.type == "cpu":
         return allfocus_blend_reference(images, weights, offsets, fmap, decode, r0, hb)
     if images.device.type != "cuda":
         raise ValueError(f"allfocus_blend runs on cpu or cuda, not {images.device}")
-
-    from . import _build
 
     lib = _build.load()
     g, c, h, w = images.shape
@@ -116,19 +108,9 @@ def allfocus_blend(
             f"the kernel takes at most {lib.lfi_allfocus_blend_max_grid()} "
             f"grid images, got {g}"
         )
-    with torch.cuda.device(images.device):
-        out = torch.empty((v, c, hb, w), dtype=torch.uint8, device=images.device)
-        stream = torch.cuda.current_stream(images.device).cuda_stream
-        err = lib.lfi_allfocus_blend(
-            images.data_ptr(), weights.data_ptr(), offsets.data_ptr(),
-            fmap.data_ptr(), decode.data_ptr(), out.data_ptr(),
-            g, c, h, w, v, r0, hb, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"lfi_allfocus_blend launch failed: CUDA error {err} "
-            f"({lib.lfi_cuda_error_string(err).decode()})"
-        )
-    launches += 1
-    passes += lib.lfi_blend_grid_passes(g)
+    out = torch.empty((v, c, hb, w), dtype=torch.uint8, device=images.device)
+    _build.launch("lfi_allfocus_blend", images.device, images.data_ptr(),
+                  weights.data_ptr(), offsets.data_ptr(), fmap.data_ptr(),
+                  decode.data_ptr(), out.data_ptr(), g, c, h, w, v, r0, hb)
+    profiling.count("allfocus_blend")
     return out

@@ -22,13 +22,19 @@ keep its maps bit-equal to the JAX package's. It has nothing to do with the
 CUDA launch geometry of the estimate kernel (``csrc/focus_estimate.cu``,
 32 x 8 pixel blocks), which only requires ``tb`` to be a multiple of 8 and
 ``wco`` of 32 -- always true here (``tb`` steps by 8, ``wco`` by 128).
+
+``FocusTables`` and ``Pyramid`` are the two host plans that the estimate
+and the per-pixel blend read; ``state.focus_tables`` fills the first.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import TYPE_CHECKING, NamedTuple
 
 import numpy as np
+
+if TYPE_CHECKING:
+    import torch
 
 
 def align(x: int, m: int) -> int:
@@ -160,6 +166,14 @@ def supports_pyramid(
     )
     return cfg_for(-(-h // scale), -(-w // scale), k, steps, radius_c,
                    sy_c, sx_c) is not None
+
+
+class FocusTables(NamedTuple):
+    """The host tables of the focus search and the per-pixel decode."""
+
+    candidates: np.ndarray | torch.Tensor  # [S] float32 candidate focus values
+    candidate_bytes: np.ndarray | torch.Tensor  # [S] uint8 map byte of each
+    decode: np.ndarray | torch.Tensor  # [256] float32 focus value of each byte
 
 
 class Pyramid(NamedTuple):

@@ -47,18 +47,10 @@ from __future__ import annotations
 
 import torch
 
-from ..state import FocusTables
 from ..utils import profiling
-from . import focus_torch
+from . import _build, focus_torch
 from .blend_torch import row_block
-from .estimate_geometry import Pyramid
-
-#: Estimates run on the CUDA kernels since import (or since a caller reset
-#: the counts to 0), per instantiation: the two tap rules and the pyramid's
-#: refine pass. One per estimate, whatever number of device launches that is
-#: (a map pass and an argmin pass for each chunk of candidates), and counted
-#: only when every one of them was launched; never plain-version calls.
-launches = {"exact": 0, "fast": 0, "pyramid": 0}
+from .estimate_geometry import FocusTables, Pyramid
 
 #: The maps of one chunk of candidates take at most this many bytes per
 #: frame pixel (but never less than one candidate's map).
@@ -68,15 +60,6 @@ MAP_BYTES_PER_PIXEL = 40
 SCRATCH_BYTES_PER_PIXEL = MAP_BYTES_PER_PIXEL + 4
 
 focus_estimate_reference = focus_torch.estimate_focus_map
-
-
-def _launched(lib, name: str, err: int) -> None:
-    """Raise unless the C entry `name` returned 0 (its launch was taken)."""
-    if err != 0:
-        raise RuntimeError(
-            f"{name} launch failed: CUDA error {err} "
-            f"({lib.lfi_cuda_error_string(err).decode()})"
-        )
 
 
 def rgbx_reference(selected: torch.Tensor) -> torch.Tensor:
@@ -93,16 +76,11 @@ def rgbx(selected: torch.Tensor) -> torch.Tensor:
     the planar views, one write of the words), by torch ops on the CPU."""
     if selected.device.type != "cuda":
         return rgbx_reference(selected)
-    from . import _build
-
-    lib = _build.load()
     k, c, h, w = selected.shape
     planar = selected.contiguous()
-    with torch.cuda.device(selected.device):
-        out = torch.empty((k, h, w), dtype=torch.int32, device=selected.device)
-        _launched(lib, "lfi_rgbx_pack", lib.lfi_rgbx_pack(
-            planar.data_ptr(), out.data_ptr(), k, c, h * w,
-            torch.cuda.current_stream(selected.device).cuda_stream))
+    out = torch.empty((k, h, w), dtype=torch.int32, device=selected.device)
+    _build.launch("lfi_rgbx_pack", selected.device, planar.data_ptr(), out.data_ptr(),
+                  k, c, h * w)
     return out
 
 
@@ -160,14 +138,11 @@ def map_chunk(h: int, w: int, radius: tuple[int, int], steps: int) -> int:
 
 class _Passes:
     """One estimate's operands and scratch on a CUDA device, and its two
-    passes over rows [r0, r0 + hb). The caller holds
-    ``torch.cuda.device(device)``."""
+    passes over rows [r0, r0 + hb)."""
 
     def __init__(self, selected, sel_offsets, tables: FocusTables, radius,
                  r0: int = 0, hb: int | None = None):
-        from . import _build
-
-        self.lib = lib = _build.load()
+        lib = _build.load()
         k, _, h, w = selected.shape
         s = tables.candidates.shape[0]
         if k > lib.lfi_focus_estimate_max_views():
@@ -180,7 +155,7 @@ class _Passes:
                 f"the kernel takes at most {lib.lfi_focus_estimate_max_steps()} "
                 f"candidates, got {s}"
             )
-        dev = selected.device
+        self.device = dev = selected.device
         rx, ry = int(radius[0]), int(radius[1])
         hb = h - r0 if hb is None else hb
         self.dims = (k, h, w, s, rx, ry, r0, hb)
@@ -194,15 +169,13 @@ class _Passes:
         self.best = (torch.empty((hb, w), dtype=torch.int32, device=dev)
                      if self.chunk < s else None)
         self.out = torch.empty((hb, w), dtype=torch.uint8, device=dev)
-        self.stream = torch.cuda.current_stream(dev).cuda_stream
 
     def map_pass(self, c0: int, n: int) -> None:
         """The maps of candidates [c0, c0 + n) into ``self.maps[:n]``."""
         k, h, w, _, rx, ry, r0, hb = self.dims
-        _launched(self.lib, "lfi_focus_cheby_map", self.lib.lfi_focus_cheby_map(
-            self.words.data_ptr(), self.offsets.data_ptr(),
-            self.cands.data_ptr() + 4 * c0, self.maps.data_ptr(), k, h, w, n,
-            rx, ry, r0, hb, self.stream))
+        _build.launch("lfi_focus_cheby_map", self.device, self.words.data_ptr(),
+                      self.offsets.data_ptr(), self.cands.data_ptr() + 4 * c0,
+                      self.maps.data_ptr(), k, h, w, n, rx, ry, r0, hb)
 
     def argmin_pass(self, c0: int, n: int, flags=None, pres=None, plan=None) -> None:
         """Candidates [c0, c0 + n) against each pixel's running best; the
@@ -212,14 +185,12 @@ class _Passes:
                 self.cand_bytes.data_ptr(), self.maps.data_ptr(), rows, cols,
                 None if self.best is None else self.best.data_ptr())
         if pres is None:
-            _launched(self.lib, "lfi_focus_estimate", self.lib.lfi_focus_estimate(
-                *head, self.out.data_ptr(), *self.dims, c0, n, self.stream))
+            _build.launch("lfi_focus_estimate", self.device, *head,
+                          self.out.data_ptr(), *self.dims, c0, n)
         else:
-            _launched(self.lib, "lfi_focus_estimate_pres",
-                      self.lib.lfi_focus_estimate_pres(
-                          *head, pres.data_ptr(), self.out.data_ptr(), *self.dims[:6],
-                          c0, n, plan.tb, plan.wco, plan.sc, plan.nb, plan.n_wc,
-                          pres.shape[2], self.stream))
+            _build.launch("lfi_focus_estimate_pres", self.device, *head,
+                          pres.data_ptr(), self.out.data_ptr(), *self.dims[:6], c0, n,
+                          plan.tb, plan.wco, plan.sc, plan.nb, plan.n_wc, pres.shape[2])
 
     def run(self, flags=None, pres=None, plan=None) -> torch.Tensor:
         """Every chunk's two passes -> the map. `flags` may be a callable
@@ -309,19 +280,20 @@ def _estimate(selected, sel_offsets, tables, radius, exact_taps, pres, plan,
     if selected.device.type != "cuda":
         raise ValueError(f"focus_estimate runs on cpu or cuda, not {selected.device}")
 
-    with torch.cuda.device(selected.device):
-        passes = _Passes(selected, sel_offsets, tables, radius, r0, hb)
-        if exact_taps and flags is None:
-            def flags():
-                # the frame's flags, sliced to the block: flags of the block
-                # alone would be those of rows [0, hb)
-                with profiling.span("lfi.estimate.flags"):
-                    rows, cols = focus_torch.clean_flags(sel_offsets, tables, radius, h, w)
-                    return _flag_bytes((rows[:, r0:r0 + hb], cols), s, hb, w,
-                                       selected.device)
-        out = passes.run(flags, None if pres is None else pres.contiguous(), plan)
-    launches["pyramid" if pres is not None else
-             "exact" if exact_taps else "fast"] += 1
+    passes = _Passes(selected, sel_offsets, tables, radius, r0, hb)
+    if exact_taps and flags is None:
+        def flags():
+            # the frame's flags, sliced to the block: flags of the block
+            # alone would be those of rows [0, hb)
+            with profiling.span("lfi.estimate.flags"):
+                rows, cols = focus_torch.clean_flags(sel_offsets, tables, radius, h, w)
+                return _flag_bytes((rows[:, r0:r0 + hb], cols), s, hb, w,
+                                   selected.device)
+    out = passes.run(flags, None if pres is None else pres.contiguous(), plan)
+    # once per estimate, whatever number of device launches that was, and
+    # only when every one of them was taken
+    profiling.count("focus_estimate_pyramid" if pres is not None else
+                    "focus_estimate_exact" if exact_taps else "focus_estimate_fast")
     return out
 
 
@@ -343,28 +315,13 @@ def cheby_maps(
                             for f in tables.candidates])
     if selected.device.type != "cuda":
         raise ValueError(f"cheby_maps runs on cpu or cuda, not {selected.device}")
-    with torch.cuda.device(selected.device):
-        passes = _Passes(selected, sel_offsets, tables, radius, r0, hb)
-        out = []
-        for c0 in range(0, passes.dims[3], passes.chunk):
-            n = min(passes.chunk, passes.dims[3] - c0)
-            passes.map_pass(c0, n)
-            out.append(passes.maps[:n].clone())
+    passes = _Passes(selected, sel_offsets, tables, radius, r0, hb)
+    out = []
+    for c0 in range(0, passes.dims[3], passes.chunk):
+        n = min(passes.chunk, passes.dims[3] - c0)
+        passes.map_pass(c0, n)
+        out.append(passes.maps[:n].clone())
     return torch.cat(out)
-
-
-def event_ms(fn, runs: int = 5) -> float:
-    """CUDA-event ms of one `fn()` on the current device: the mean of `runs`
-    calls back to back, after one that warms up."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(runs):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / runs
 
 
 def pass_times(selected, sel_offsets, tables: FocusTables, radius,
@@ -381,9 +338,9 @@ def pass_times(selected, sel_offsets, tables: FocusTables, radius,
     h, w = selected.shape[2:]
 
     def ms(fn) -> float:
-        return event_ms(fn, runs)
+        return profiling.event_ms(fn, runs)
 
-    with torch.cuda.device(selected.device):
+    with torch.cuda.device(selected.device):  # event_ms times the current device
         passes = _Passes(selected, sel_offsets, tables, radius)
         n = passes.chunk
         out = {"chunk": n, "steps": s,

@@ -43,9 +43,8 @@ from __future__ import annotations
 
 import torch
 
-from ..state import FocusTables
 from .blend_torch import row_block
-from .estimate_geometry import Pyramid
+from .estimate_geometry import FocusTables, Pyramid
 
 
 def _taps(

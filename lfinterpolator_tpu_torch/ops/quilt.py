@@ -29,14 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from . import blend_torch, quilt_torch, shift_blend
-
-#: Kernel launches since import (or since a caller reset them to 0), per
-#: kernel. Counts only launches of the CUDA kernels, never plain-version
-#: calls. ``passes``: the passes over the images of the quilt_blend
-#: launches (as ``shift_blend.passes``).
-launches = {"quilt_blend": 0, "quilt_copy": 0}
-passes = 0
+from ..utils import profiling
+from . import _build, blend_torch, quilt_torch, shift_blend
 
 
 def quilt_blend_reference(
@@ -49,14 +43,6 @@ def quilt_blend_reference(
         blend_torch.render_fixed(images, weights[:n], shifts), cols, rows)
 
 
-def _raise_on(name: str, err: int, lib) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"{name} launch failed: CUDA error {err} "
-            f"({lib.lfi_cuda_error_string(err).decode()})"
-        )
-
-
 def quilt_blend(
     images: torch.Tensor,  # [G, C, H, W] uint8
     weights: torch.Tensor,  # [V >= cols*rows, G] float32, fp16-valued
@@ -66,7 +52,6 @@ def quilt_blend(
 ) -> torch.Tensor:
     """Quilt-only fixed-focus render -> [C, rows*H, cols*W] uint8 canvas,
     view i at tile (i // cols, i % cols) (kernel on CUDA tensors)."""
-    global passes
     shift_blend.check_operands(images, weights, shifts)
     n = cols * rows
     if cols < 1 or rows < 1 or weights.shape[0] < n:
@@ -77,8 +62,6 @@ def quilt_blend(
     if images.device.type != "cuda":
         raise ValueError(f"quilt_blend runs on cpu or cuda, not {images.device}")
 
-    from . import _build
-
     lib = _build.load()
     g, c, h, w = images.shape
     if g > lib.lfi_shift_blend_max_grid():
@@ -87,17 +70,11 @@ def quilt_blend(
             f"grid images, got {g}"
         )
     clipped = shift_blend.clip_shifts(shifts, h, w)
-    with torch.cuda.device(images.device):
-        out = torch.empty((c, rows * h, cols * w), dtype=torch.uint8,
-                          device=images.device)
-        stream = torch.cuda.current_stream(images.device).cuda_stream
-        err = lib.lfi_quilt_blend(
-            images.data_ptr(), weights.data_ptr(), clipped.data_ptr(),
-            out.data_ptr(), g, c, h, w, cols, rows, stream,
-        )
-    _raise_on("lfi_quilt_blend", err, lib)
-    launches["quilt_blend"] += 1
-    passes += lib.lfi_blend_grid_passes(g)
+    out = torch.empty((c, rows * h, cols * w), dtype=torch.uint8, device=images.device)
+    _build.launch("lfi_quilt_blend", images.device, images.data_ptr(),
+                  weights.data_ptr(), clipped.data_ptr(), out.data_ptr(),
+                  g, c, h, w, cols, rows)
+    profiling.count("quilt_blend")
     return out
 
 
@@ -112,18 +89,11 @@ def quilt_copy(tiles: torch.Tensor, cols: int = 5, rows: int = 9) -> torch.Tenso
     if not tiles.is_contiguous():
         raise ValueError("quilt_copy needs contiguous tiles")
 
-    from . import _build
-
-    lib = _build.load()
     _, c, th, tw = tiles.shape
-    with torch.cuda.device(tiles.device):
-        out = torch.empty((c, rows * th, cols * tw), dtype=torch.uint8,
-                          device=tiles.device)
-        stream = torch.cuda.current_stream(tiles.device).cuda_stream
-        err = lib.lfi_quilt_copy(tiles.data_ptr(), out.data_ptr(), c, th, tw,
-                                 cols, rows, stream)
-    _raise_on("lfi_quilt_copy", err, lib)
-    launches["quilt_copy"] += 1
+    out = torch.empty((c, rows * th, cols * tw), dtype=torch.uint8, device=tiles.device)
+    _build.launch("lfi_quilt_copy", tiles.device, tiles.data_ptr(), out.data_ptr(),
+                  c, th, tw, cols, rows)
+    profiling.count("quilt_copy")
     return out
 
 

@@ -39,23 +39,8 @@ from __future__ import annotations
 
 import torch
 
-from . import blend_torch
-
-#: Kernel launches since import (or since a caller reset it to 0). Counts
-#: only launches of the CUDA kernel, never plain-version calls; a launch
-#: made for a stream's frame (``streamed=True``, the K2 counterpart) counts
-#: in ``stream_launches`` instead. ``passes`` and ``stream_passes`` count
-#: the passes over the images those launches ran (a grid of up to 96
-#: images is one pass, a larger one passes of 64: five at 289).
-launches = 0
-stream_launches = 0
-passes = 0
-stream_passes = 0
-
-
-def is_available() -> bool:
-    """True when a CUDA device is present to launch the kernel on."""
-    return torch.cuda.is_available()
+from ..utils import profiling
+from . import _build, blend_torch
 
 
 def shift_blend_reference(
@@ -111,23 +96,19 @@ def shift_blend(
     weights: torch.Tensor,  # [V, G] float32, fp16-valued
     shifts: torch.Tensor,  # [G, 2] int32 (dx, dy)
     *,
-    streamed: bool = False,
     row_start: int = 0,
     row_count: int | None = None,
 ) -> torch.Tensor:
     """Fixed-focus render of rows [row_start, row_start + row_count) ->
     [V, C, hb, W] uint8 (kernel on CUDA tensors; the defaults: the frame).
-    The weights must be fp16-valued (see the module's docstring).
-    `streamed` counts the launch as a stream's (``stream_launches``)."""
-    global launches, stream_launches, passes, stream_passes
+    The weights must be fp16-valued (see the module's docstring). A launch
+    counts as ``shift_blend`` (``profiling.launch_counts``)."""
     check_operands(images, weights, shifts)
     r0, hb = blend_torch.row_block(images.shape[2], row_start, row_count)
     if images.device.type == "cpu":
         return shift_blend_reference(images, weights, shifts, r0, hb)
     if images.device.type != "cuda":
         raise ValueError(f"shift_blend runs on cpu or cuda, not {images.device}")
-
-    from . import _build
 
     lib = _build.load()
     g, c, h, w = images.shape
@@ -138,23 +119,9 @@ def shift_blend(
             f"grid images, got {g}"
         )
     clipped = clip_shifts(shifts, h, w)
-    with torch.cuda.device(images.device):
-        out = torch.empty((v, c, hb, w), dtype=torch.uint8, device=images.device)
-        stream = torch.cuda.current_stream(images.device).cuda_stream
-        err = lib.lfi_shift_blend(
-            images.data_ptr(), weights.data_ptr(), clipped.data_ptr(),
-            out.data_ptr(), g, c, h, w, v, r0, hb, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"lfi_shift_blend launch failed: CUDA error {err} "
-            f"({lib.lfi_cuda_error_string(err).decode()})"
-        )
-    n = lib.lfi_blend_grid_passes(g)
-    if streamed:
-        stream_launches += 1
-        stream_passes += n
-    else:
-        launches += 1
-        passes += n
+    out = torch.empty((v, c, hb, w), dtype=torch.uint8, device=images.device)
+    _build.launch("lfi_shift_blend", images.device, images.data_ptr(),
+                  weights.data_ptr(), clipped.data_ptr(), out.data_ptr(),
+                  g, c, h, w, v, r0, hb)
+    profiling.count("shift_blend")
     return out

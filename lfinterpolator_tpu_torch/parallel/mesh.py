@@ -44,7 +44,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..models import pipeline
 from ..ops import blend_torch, focus_estimate, focus_torch
-from ..state import FocusTables
+from ..ops.estimate_geometry import FocusTables
 from ..utils import profiling
 
 AXES = ("view", "space")

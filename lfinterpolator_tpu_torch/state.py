@@ -20,7 +20,6 @@ adds and looks up.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -64,15 +63,8 @@ def _weights_and_offsets(trajectory, cols, rows, height, width, effect, aspect,
     return start_end, wm, offsets
 
 
-class FocusTables(NamedTuple):
-    """The host tables of the focus search and the per-pixel decode."""
-
-    candidates: np.ndarray | torch.Tensor  # [S] float32 candidate focus values
-    candidate_bytes: np.ndarray | torch.Tensor  # [S] uint8 map byte of each
-    decode: np.ndarray | torch.Tensor  # [256] float32 focus value of each byte
-
-
-def focus_tables(focus: float, focus_range: float, steps: int) -> FocusTables:
+def focus_tables(focus: float, focus_range: float,
+                 steps: int) -> estimate_geometry.FocusTables:
     """The tables in NumPy float32, with the oracle's expressions.
 
     Candidates: ``geometry.focus_candidates`` (``reference.py:192``).
@@ -90,7 +82,7 @@ def focus_tables(focus: float, focus_range: float, steps: int) -> FocusTables:
         + np.arange(256, dtype=np.float32) / np.float32(255)
         * np.float32(focus_range)
     ).astype(np.float32)
-    return FocusTables(candidates, candidate_bytes, decode)
+    return estimate_geometry.FocusTables(candidates, candidate_bytes, decode)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,11 +94,7 @@ class AllFocusParams:
     focus_ids: np.ndarray  # [K] int32, the views the focus search reads
     radius: tuple[int, int]  # (rx, ry) stencil spacing of the search
     filter_radius: tuple[int, int]  # (rx, ry) of the map's box filter
-    tables: FocusTables
-    # The JAX package's shift pad (px, py), max(shift_pad_bound, radius + 1),
-    # and its per-chunk shift spans: they fix the pyramid's geometry.
-    pad: tuple[int, int]
-    spans: tuple[int, int]
+    tables: estimate_geometry.FocusTables
     # The coarse-to-fine estimate's plan when the config asks for it
     # (focus_pyramid, exact taps) and the geometry takes it; None: the
     # exact sweep runs (focus.py:186-201).
@@ -124,8 +112,8 @@ def allfocus_params(
 ) -> AllFocusParams:
     """An all-in-focus render's host arrays, as ``api.py:593-693`` builds
     them (the focus, range, effect, aspect, counts and the pyramid flag come
-    from `config`). The pad and spans take every grid image's offset, as
-    there, not only the focus views'."""
+    from `config`). The pyramid's pad and spans take every grid image's
+    offset, as there, not only the focus views'."""
     start_end, wm, offsets = _weights_and_offsets(
         trajectory, cols, rows, height, width, config.effect, config.aspect,
         config.view_count,
@@ -134,15 +122,18 @@ def allfocus_params(
     focus_ids = geometry.select_focus_views(
         start_end, cols, rows, config.focus_map_views
     )
-    px, py = estimate_geometry.shift_pad_bound(
-        offsets, config.focus, config.focus_range, radius, height, width
-    )
-    pad = (max(px, radius[0] + 1), max(py, radius[1] + 1))
-    spans = estimate_geometry.chunk_spans(
-        offsets, config.focus, config.focus_range, config.focus_steps, 4
-    )
     pyramid = None
     if config.focus_pyramid and config.exact_focus_taps:
+        # the JAX package's shift pad (px, py), max(shift_pad_bound,
+        # radius + 1), and its per-chunk shift spans fix the pyramid's
+        # geometry
+        px, py = estimate_geometry.shift_pad_bound(
+            offsets, config.focus, config.focus_range, radius, height, width
+        )
+        pad = (max(px, radius[0] + 1), max(py, radius[1] + 1))
+        spans = estimate_geometry.chunk_spans(
+            offsets, config.focus, config.focus_range, config.focus_steps, 4
+        )
         pyramid = estimate_geometry.pyramid_plan(
             height, width, len(focus_ids), config.focus_steps, radius, spans, pad
         )
@@ -156,8 +147,6 @@ def allfocus_params(
             radius[1] // config.filter_radius_divisor,
         ),
         tables=focus_tables(config.focus, config.focus_range, config.focus_steps),
-        pad=pad,
-        spans=spans,
         pyramid=pyramid,
     )
 
@@ -186,7 +175,7 @@ def fp16_valued(weights: np.ndarray) -> np.ndarray:
 
 def upload_allfocus(
     params: AllFocusParams, device
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, FocusTables]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, estimate_geometry.FocusTables]:
     """-> (weights [V, G] f32, offsets [G, 2] f32, focus_ids [K] int64,
     tables) on device. Raises ValueError unless the weights are fp16-valued
     (``fp16_valued``)."""
@@ -198,7 +187,7 @@ def upload_allfocus(
         up(fp16_valued(params.weights)),
         up(params.offsets),
         up(params.focus_ids.astype(np.int64)),
-        FocusTables(*(up(t) for t in params.tables)),
+        estimate_geometry.FocusTables(*(up(t) for t in params.tables)),
     )
 
 

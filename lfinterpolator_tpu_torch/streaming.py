@@ -20,9 +20,8 @@ launch on the raw stack: its operand load is the clamp-shift that the JAX
 package's ``shift_pallas._shift_kernel`` (K2) computed into a tiled
 intermediate, so no shifted or tile-padded stack exists and every geometry
 streams. A fixed-focus STD frame is the plain ops; an all-focus frame is
-``pipeline.render_all_focus`` (estimate, filter, per-pixel blend), or with
-``focus_map_refresh`` N > 1 the maps of the first of every N frames and
-a blend per frame.
+a per-pixel blend with the maps (estimate, filter) of the first of every
+``focus_map_refresh`` N frames: at N = 1 every frame's own.
 """
 
 from __future__ import annotations
@@ -135,20 +134,17 @@ class StreamingRenderer:
         [V, 3, H, W], or (views, maps [2, H, W]) all in focus."""
         if not self.cfg.uses_focus_map:
             return pipeline.render_fixed_focus(images, self.weights, self.shifts,
-                                               method=self.method, streamed=True)
+                                               method=self.method)
         cfg, p = self.cfg, self._params
-        kwargs = dict(radius=p.radius, filter_radius=p.filter_radius,
-                      exact_taps=cfg.exact_focus_taps, pyramid=p.pyramid)
-        if cfg.focus_map_refresh == 1:
-            return pipeline.render_all_focus(
-                images, self.weights, self._offsets, self._ids, self._tables,
-                method=self.method, **kwargs)
         # Temporal map reuse (streaming.py:224-252): re-estimate every N
-        # frames, blend the frames in between with the latest maps. Frames
-        # that estimate are equal to the render_all_focus of the frame.
+        # frames, blend the frames in between with the latest maps. A frame
+        # that estimates (every frame at N = 1) is the frame's all-in-focus
+        # render.
         if self._frame_idx % cfg.focus_map_refresh == 0:
             self._maps = pipeline.compute_focus_maps(
-                images, self._offsets, self._ids, self._tables, **kwargs)
+                images, self._offsets, self._ids, self._tables, radius=p.radius,
+                filter_radius=p.filter_radius, exact_taps=cfg.exact_focus_taps,
+                pyramid=p.pyramid)
         self._frame_idx += 1
         views = pipeline.blend_all_focus(images, self.weights, self._offsets,
                                          self._maps, self._tables.decode,

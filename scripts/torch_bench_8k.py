@@ -304,8 +304,7 @@ def render_method(interp, method, device, verify_images=None, log=print) -> dict
     if set(phases) != set(PHASES):  # the API reached the estimate or blend otherwise
         raise RuntimeError(f"the instrumented call timed {sorted(phases)}, not {list(PHASES)}")
     res, steady_s = call()
-    launches = {k: v - launches0[k] for k, v in profiling.launch_counts().items()
-                if v != launches0[k]}
+    launches = dict(profiling.launch_counts() - launches0)
     rec = {
         "plan": {"arm": arm, "view_batch": plan.view_batch,
                  "bytes_planned": plan.bytes_unbatched, "stack_bytes": stack,

@@ -28,6 +28,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from lfinterpolator_tpu_torch.ops import (  # noqa: E402
     _build, allfocus_blend, blend_torch, quilt, shift_blend)
+from lfinterpolator_tpu_torch.utils.profiling import event_ms  # noqa: E402
 
 DEV = "cuda"
 
@@ -95,18 +96,6 @@ def check_small():
                                              offsets, fmap, decode)
         if not torch.equal(part, got[v // 2:]):
             raise AssertionError("allfocus_blend rows differ alone")
-
-
-def event_ms(fn, runs=10):
-    fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(runs):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / runs
 
 
 def time_headline(smi):

@@ -38,8 +38,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from lfinterpolator_tpu_torch import RenderConfig, state  # noqa: E402
 from lfinterpolator_tpu_torch.ops import _build, focus_estimate, focus_torch  # noqa: E402
-from lfinterpolator_tpu_torch.ops.estimate_geometry import Pyramid  # noqa: E402
-from lfinterpolator_tpu_torch.state import FocusTables, focus_tables  # noqa: E402
+from lfinterpolator_tpu_torch.ops.estimate_geometry import FocusTables, Pyramid  # noqa: E402
+from lfinterpolator_tpu_torch.state import focus_tables  # noqa: E402
+from lfinterpolator_tpu_torch.utils.profiling import event_ms  # noqa: E402
 
 DEV = "cuda"
 H, W = 1080, 1920
@@ -148,12 +149,11 @@ def time_headline(smi):
               focus_estimate.focus_estimate(*args, True, pres, plan),
               focus_torch.estimate_presence(*args, pres, plan))
         for _ in range(2):
-            ms = focus_estimate.event_ms
             whole = {
-                "exact": ms(lambda: focus_estimate.focus_estimate(*args, True)),
-                "fast": ms(lambda: focus_estimate.focus_estimate(*args, False)),
-                "predicated (density ~0.5)": ms(
-                    lambda: focus_estimate.focus_estimate(*args, True, pres, plan)),
+                "exact": event_ms(lambda: focus_estimate.focus_estimate(*args, True), runs=5),
+                "fast": event_ms(lambda: focus_estimate.focus_estimate(*args, False), runs=5),
+                "predicated (density ~0.5)": event_ms(
+                    lambda: focus_estimate.focus_estimate(*args, True, pres, plan), runs=5),
             }
             parts = focus_estimate.pass_times(*args, True)
             fast = focus_estimate.pass_times(*args, False)

@@ -29,8 +29,9 @@ Prints one JSON line: ``psnr_db`` by row ("inf" for identical renders),
 ``threshold_db``, ``pass`` (every gated row at or above the threshold), and
 what the rows need to be read: the informational rows and why, whether the
 port's maps equal the oracle's, the share of the pyramid's map bytes that
-differ from the exact sweep, the kernel launches of the run. Exit 0 only
-when the gate passes.
+differ from the exact sweep, the kernel launches of the run
+(``launches``) and of its streamed frames alone (``stream_launches``). Exit
+0 only when the gate passes.
 
 Usage: torch_quality_gate.py [--size HxW] [--grid CxR] [--threshold-db 45]
                              [--scene plane|occlusion] [--device cuda|cpu]
@@ -162,7 +163,8 @@ def run_gate(size=(192, 256), grid=(6, 6), scene="plane", device="cuda",
     results["quilt/TEN"] = metrics.psnr(
         q.quilt, quilt_montage(oracle.blend_fixed(images, wm_quilt, fo), QUILT_COLS, QUILT_ROWS))
 
-    # one streamed frame, fixed and all in focus
+    # one streamed frame, fixed and all in focus, their launches counted apart
+    before = profiling.launch_counts()
     for name, extra, want_stream in (("fixed", {}, want_fixed),
                                      ("allfocus", {"focus_range": FRANGE}, want["TEN"])):
         sr = StreamingRenderer(cols, rows, w, h, TRAJECTORY, device=device,
@@ -171,6 +173,7 @@ def run_gate(size=(192, 256), grid=(6, 6), scene="plane", device="cuda",
         out = next(iter(sr.render_stream([images])))
         views = out[0] if extra else out
         results[f"stream/{name}"] = metrics.psnr(views, want_stream)
+    stream_launches = profiling.launch_counts() - before
 
     # the coarse-to-fine estimate, where the geometry runs it
     payload_extra = {}
@@ -203,6 +206,7 @@ def run_gate(size=(192, 256), grid=(6, 6), scene="plane", device="cuda",
         "maps_equal_oracle": maps_exact,
         **payload_extra,
         "launches": profiling.launch_counts(),
+        "stream_launches": stream_launches,
     }
 
 

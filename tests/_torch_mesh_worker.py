@@ -114,7 +114,7 @@ def case_fixed(inputs: dict) -> tuple[dict, dict]:
 
 
 def _tables(inputs):
-    from lfinterpolator_tpu_torch.state import FocusTables
+    from lfinterpolator_tpu_torch.ops.estimate_geometry import FocusTables
 
     return FocusTables(*(torch.from_numpy(inputs[k])
                          for k in ("candidates", "candidate_bytes", "decode")))

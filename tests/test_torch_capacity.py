@@ -24,6 +24,7 @@ from lfinterpolator_tpu_torch.io import LightField
 from lfinterpolator_tpu_torch.models import pipeline
 from lfinterpolator_tpu_torch.ops import focus_estimate
 from lfinterpolator_tpu_torch.streaming import StreamingRenderer
+from lfinterpolator_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -144,13 +145,14 @@ CARD = torch.device("cuda:0")
 @pytest.fixture
 def card(monkeypatch):
     """A fake card in place of the free-memory read and the allocator's
-    counts; the capacity module's clock, readings and count afresh."""
+    counts; the capacity module's clock and readings, and the table of
+    counts, afresh."""
     fake = FakeCard(free=40 << 30, reserved=2 << 30, allocated=1 << 30)
     monkeypatch.setattr(torch.cuda, "mem_get_info", fake.mem_get_info)
     monkeypatch.setattr(torch.cuda, "memory_stats_as_nested_dict", fake.stats)
     monkeypatch.setattr(capacity, "_clock", lambda: fake.now)
     monkeypatch.setattr(capacity, "_readings", {})
-    monkeypatch.setattr(capacity, "budget_reads", 0)
+    profiling.reset_launch_counts()
     monkeypatch.delenv("LFI_HBM_BYTES", raising=False)
     return fake
 
@@ -193,7 +195,7 @@ def test_steady_calls_within_a_second_read_free_memory_once(card):
         plan = capacity.plan_render(G, C, H, W, 64, method="TEN", focus_views=8, device=CARD)
         assert not plan.batched and plan.budget == card.budget - capacity._headroom(card.budget)
         card.now += 0.0099
-    assert card.free_reads == capacity.budget_reads == 1
+    assert card.free_reads == profiling.launch_counts()["capacity budget reads"] == 1
 
 
 @pytest.mark.parametrize("caller", ["plan_render", "check_capacity"])
@@ -272,12 +274,10 @@ def test_the_override_a_given_budget_and_the_cpu_never_read_the_card(card, monke
         plan = capacity.plan_render(G, C, H, W, 64, method="STD", focus_views=8, **kw)
         assert plan.budget == b - capacity._headroom(b)
         capacity.check_capacity(1 << 20, "a request", **kw)
-    assert capacity.budget_reads == 0
+    assert profiling.launch_counts()["capacity budget reads"] == 0
 
 
 def test_budget_reads_are_counted_and_reset(card):
-    from lfinterpolator_tpu_torch.utils import profiling
-
     for _ in range(3):
         capacity.device_hbm_bytes(CARD, 0)
         card.now += 2.0

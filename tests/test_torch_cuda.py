@@ -31,8 +31,9 @@ from lfinterpolator_tpu_torch.io import LightField
 from lfinterpolator_tpu_torch.ops import (
     allfocus_blend, blend_torch, focus_estimate, focus_torch, quilt, quilt_torch,
     shift_blend)
-from lfinterpolator_tpu_torch.ops.estimate_geometry import Pyramid
-from lfinterpolator_tpu_torch.state import FocusTables, focus_tables, to_device_state
+from lfinterpolator_tpu_torch.ops.estimate_geometry import FocusTables, Pyramid
+from lfinterpolator_tpu_torch.state import focus_tables, to_device_state
+from lfinterpolator_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -54,6 +55,11 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     return torch.device("cuda")
+
+
+def _launched(before):
+    """What ``profiling.launch_counts()`` counted since `before`."""
+    return profiling.launch_counts() - before
 
 
 def _one_lsb(got, want):
@@ -93,10 +99,10 @@ def _scene(cols, rows, h, w, v, focus, seed=0):
 def test_kernel_matches_plain_version_and_oracle(scene, focus, cuda_device):
     images, wm, fo = _scene(*scene, focus)
     args = to_device_state(images, wm, fo, cuda_device)
-    before = shift_blend.launches
+    before = profiling.launch_counts()
     got = shift_blend.shift_blend(*args)
     torch.cuda.synchronize()
-    assert shift_blend.launches == before + 1
+    assert _launched(before) == {"shift_blend": 1}
     _near_tie(got, blend_torch.shift_stack(args[0], args[2]), args[1])
     _one_lsb(got, shift_blend.shift_blend_reference(*args))
     _one_lsb(got.permute(0, 2, 3, 1), reference.blend_fixed(images, wm, fo))
@@ -211,10 +217,10 @@ def test_launch_error_raises(cuda_device, monkeypatch):
 
     monkeypatch.setattr(_build, "load", lambda: Failing)
     images, wm, fo = _scene(2, 2, 8, 8, 2, 0.0)
-    before = shift_blend.launches
+    before = profiling.launch_counts()
     with pytest.raises(RuntimeError, match="CUDA error 9"):
         shift_blend.shift_blend(*to_device_state(images, wm, fo, cuda_device))
-    assert shift_blend.launches == before
+    assert profiling.launch_counts() == before
 
 
 @pytest.mark.cuda
@@ -224,10 +230,10 @@ def test_interpolator_ten_equals_std_on_cuda(cuda_device):
     images, _, _ = _scene(4, 4, 48, 64, 1, 0.0)
     interp = Interpolator(LightField(images, 4, 4), device=cuda_device,
                           progress=False)
-    before = shift_blend.launches
+    before = profiling.launch_counts()
     ten = interp.interpolate("0,0,1,1", focus=0.3, method="TEN",
                              benchmark_runs=2, progress=False)
-    assert shift_blend.launches == before + 3
+    assert _launched(before)["shift_blend"] == 3
     std = interp.interpolate("0,0,1,1", focus=0.3, method="STD", progress=False)
     _one_lsb(ten.views, std.views)
     assert len(ten.run_times_s) == 2 and ten.avg_ms > 0
@@ -283,11 +289,11 @@ def test_focus_estimate_matches_plain_version_and_oracle(case, exact, cuda_devic
     selected = _t(images[ids][..., :3].transpose(0, 3, 1, 2), cuda_device)
     args = (selected, _t(offsets[ids], cuda_device),
             _tables(focus, frange, steps, cuda_device), radius, exact)
-    rule = "exact" if exact else "fast"
-    before = focus_estimate.launches[rule]
+    before = profiling.launch_counts()
     got = focus_estimate.focus_estimate(*args)
     torch.cuda.synchronize()
-    assert focus_estimate.launches[rule] == before + 1
+    rule = "focus_estimate_exact" if exact else "focus_estimate_fast"
+    assert _launched(before) == {rule: 1}
     assert torch.equal(got, focus_estimate.focus_estimate_reference(*args))
     if exact:
         np.testing.assert_array_equal(
@@ -329,11 +335,11 @@ def test_estimate_passes_and_the_nine_tap_loop_alone(case, cuda_device):
     if radius == (0, 0):
         assert focus_torch.slow_share(*flags) == 0.0
     want = focus_estimate.focus_estimate(*args)
-    before = dict(focus_estimate.launches)
+    before = profiling.launch_counts()
     none = tuple(torch.zeros_like(f) for f in flags)
     for forced in (none, (none[0], flags[1]), (flags[0], none[1]), flags):
         assert torch.equal(focus_estimate.focus_estimate_flagged(*args, forced), want)
-    assert focus_estimate.launches == {**before, "exact": before["exact"] + 4}
+    assert _launched(before) == {"focus_estimate_exact": 4}
     with pytest.raises(ValueError, match="flags must be bool"):
         focus_estimate.focus_estimate_flagged(*args, (flags[0].cpu(), flags[1]))
 
@@ -367,10 +373,10 @@ def test_allfocus_blend_matches_plain_version_and_oracle(case, kind, cuda_device
     args = (_t(images[..., :3].transpose(0, 3, 1, 2), cuda_device),
             _t(wm.astype(np.float32), cuda_device), _t(offsets, cuda_device),
             _t(fmap, cuda_device), _t(tables.decode, cuda_device))
-    before = allfocus_blend.launches
+    before = profiling.launch_counts()
     got = allfocus_blend.allfocus_blend(*args)
     torch.cuda.synchronize()
-    assert allfocus_blend.launches == before + 1
+    assert _launched(before) == {"allfocus_blend": 1}
     _near_tie(got, blend_torch.allfocus_selected(args[0], *args[2:]), args[1])
     _one_lsb(got.permute(0, 2, 3, 1),
              reference.blend_allfocus(images, wm, offsets, fmap, focus, frange))
@@ -434,19 +440,19 @@ def test_new_kernels_launch_error_raises(kernel, cuda_device, monkeypatch):
     planar = _t(images[..., :3].transpose(0, 3, 1, 2), cuda_device)
     offs = _t(offsets, cuda_device)
     if kernel.startswith("focus_estimate"):
-        before = dict(focus_estimate.launches)
+        before = profiling.launch_counts()
         for exact in (True, False):
             with pytest.raises(RuntimeError,
                                match=f"{FAILING[kernel]} launch failed: CUDA error 9"):
                 focus_estimate.focus_estimate(planar, offs, tables, (2, 2), exact)
-        assert focus_estimate.launches == before
+        assert profiling.launch_counts() == before
     else:
-        before = allfocus_blend.launches
+        before = profiling.launch_counts()
         w = torch.full((3, 4), 0.25, dtype=torch.float32, device=cuda_device)
         fmap = torch.zeros((8, 8), dtype=torch.uint8, device=cuda_device)
         with pytest.raises(RuntimeError, match="CUDA error 9"):
             allfocus_blend.allfocus_blend(planar, w, offs, fmap, tables.decode)
-        assert allfocus_blend.launches == before
+        assert profiling.launch_counts() == before
 
 
 @pytest.mark.cuda
@@ -477,12 +483,12 @@ def test_interpolator_allfocus_on_cuda_equals_cpu(method, exact, cuda_device):
     cfg = RenderConfig(focus_map_views=8, focus_steps=8, filter_radius_divisor=1,
                        exact_focus_taps=exact)
     kw = dict(focus=0.1, focus_range=0.3, method=method, progress=False)
-    rule = "exact" if exact else "fast"
-    before = (focus_estimate.launches[rule], allfocus_blend.launches)
+    rule = "focus_estimate_exact" if exact else "focus_estimate_fast"
+    before = profiling.launch_counts()
     got = Interpolator(lf, config=cfg, device=cuda_device, progress=False
                        ).interpolate("0,0,1,1", benchmark_runs=2, **kw)
-    assert (focus_estimate.launches[rule], allfocus_blend.launches) == (
-        before[0] + 3, before[1] + 3)
+    launched = _launched(before)
+    assert (launched[rule], launched["allfocus_blend"]) == (3, 3)
     want = Interpolator(lf, config=cfg, device="cpu", progress=False
                         ).interpolate("0,0,1,1", **kw)
     np.testing.assert_array_equal(got.maps, want.maps)
@@ -547,10 +553,10 @@ def test_presence_estimate_matches_plain_version_and_oracle(case, cuda_device):
     selected = _t(images[ids][..., :3].transpose(0, 3, 1, 2), cuda_device)
     tables = _tables(0.1, 0.5, steps, cuda_device)
     args = (selected, _t(offsets[ids], cuda_device), tables, radius)
-    before = dict(focus_estimate.launches)
+    before = profiling.launch_counts()
     got = focus_estimate.focus_estimate(*args, True, _t(pres, cuda_device), plan)
     torch.cuda.synchronize()
-    assert focus_estimate.launches == {**before, "pyramid": before["pyramid"] + 1}
+    assert _launched(before) == {"focus_estimate_pyramid": 1}
     plain = focus_torch.estimate_presence(*args, _t(pres, cuda_device), plan)
     assert torch.equal(got, plain)
     present = focus_torch.expand_presence(
@@ -615,10 +621,10 @@ def test_quilt_blend_matches_plain_version_and_oracle(case, cuda_device):
     cols, rows, h, w, qc, qr, focus = case
     images, wm, fo = _scene(cols, rows, h, w, 64, focus)
     args = to_device_state(images, wm, fo, cuda_device)
-    before = dict(quilt.launches)
+    before = profiling.launch_counts()
     got = quilt.quilt_blend(*args, qc, qr)
     torch.cuda.synchronize()
-    assert quilt.launches == {**before, "quilt_blend": before["quilt_blend"] + 1}
+    assert _launched(before) == {"quilt_blend": 1}
     assert got.shape == (3, qr * h, qc * w)
     # kernel against kernel: the canvas is the montage of shift_blend's views
     assert torch.equal(got, quilt_torch.montage(shift_blend.shift_blend(*args), qc, qr))
@@ -636,10 +642,10 @@ def test_quilt_copy_matches_plain_version_and_oracle(shape, cuda_device):
     cols, rows = (2, 3) if shape[0] == 6 else (5, 9)
     tiles = np.random.default_rng(2).integers(0, 256, shape, dtype=np.uint8)
     t = _t(tiles, cuda_device)
-    before = dict(quilt.launches)
+    before = profiling.launch_counts()
     got = quilt.quilt_copy(t, cols, rows)
     torch.cuda.synchronize()
-    assert quilt.launches == {**before, "quilt_copy": before["quilt_copy"] + 1}
+    assert _launched(before) == {"quilt_copy": 1}
     assert torch.equal(got, quilt_torch.montage(t, cols, rows))
     np.testing.assert_array_equal(
         got.permute(1, 2, 0).cpu().numpy(),
@@ -660,14 +666,14 @@ def test_render_quilt_on_cuda_equals_cpu(kw, cuda_device):
     images, _, _ = _scene(4, 4, 48, 64, 1, 0.0)
     lf = LightField(images, 4, 4)
     cfg = RenderConfig(focus_map_views=8, focus_steps=8)
-    before = dict(quilt.launches)
+    before = profiling.launch_counts()
     got = Interpolator(lf, config=cfg, device=cuda_device, progress=False
                        ).render_quilt("0,0,1,1", focus=0.1, progress=False, **kw)
     fused = kw == dict(method="TEN")
     assert got.fused is fused
     key, other = ("quilt_blend", "quilt_copy") if fused else ("quilt_copy", "quilt_blend")
-    assert quilt.launches[key] == before[key] + 1
-    assert quilt.launches[other] == before[other]
+    launched = _launched(before)
+    assert (launched[key], launched[other]) == (1, 0)
     want = Interpolator(lf, config=cfg, device="cpu", progress=False
                         ).render_quilt("0,0,1,1", focus=0.1, progress=False, **kw)
     if kw == dict(method="STD"):  # plain ops on both devices, no resize
@@ -686,13 +692,13 @@ def test_interpolator_pyramid_on_cuda_equals_cpu(cuda_device):
     images, _, _ = _scene(4, 4, 40, 512, 1, 0.0)
     lf = LightField(images, 4, 4)
     cfg = RenderConfig(focus_map_views=8, focus_steps=8, focus_pyramid=True)
-    before = dict(focus_estimate.launches)
+    before = profiling.launch_counts()
     got = Interpolator(lf, config=cfg, device=cuda_device, progress=False
                        ).interpolate("0,0,1,1", focus=0.1, focus_range=0.3,
                                      method="TEN", progress=False)
     # the coarse pass on the exact kernel, the refine on the predicated one
-    assert focus_estimate.launches["exact"] == before["exact"] + 1
-    assert focus_estimate.launches["pyramid"] == before["pyramid"] + 1
+    launched = _launched(before)
+    assert (launched["focus_estimate_exact"], launched["focus_estimate_pyramid"]) == (1, 1)
     want = Interpolator(lf, config=cfg, device="cpu", progress=False
                         ).interpolate("0,0,1,1", focus=0.1, focus_range=0.3,
                                       method="TEN", progress=False)
@@ -706,15 +712,14 @@ def test_stream_on_cuda_equals_plain_and_oracle(focus_range, cuda_device):
     """The CUDA stream (pinned uploads, upload/download streams) yields each
     frame within 1 LSB of the plain pipeline on the CPU (maps equal); fixed
     TEN frames equal a one-pass shift_blend byte for byte, are within 1 LSB
-    of the oracle and launch shift_blend once a frame, counted as the
-    stream's launches."""
+    of the oracle and launch shift_blend once a frame."""
     from lfinterpolator_tpu_torch.core.config import RenderConfig
     from lfinterpolator_tpu_torch.streaming import StreamingRenderer
 
     cfg = RenderConfig(method="TEN", focus=0.3, focus_range=focus_range, view_count=9,
                        focus_map_views=8, focus_steps=8, focus_map_refresh=2)
     frames = [_scene(4, 4, 37, 70, 1, 0.0, seed=s)[0] for s in range(5)]
-    before = (shift_blend.launches, shift_blend.stream_launches)
+    before = profiling.launch_counts()
     got = list(StreamingRenderer(4, 4, 70, 37, "0,0,1,1", config=cfg, prefetch=2,
                                  device=cuda_device).render_stream(iter(frames)))
     want = list(StreamingRenderer(4, 4, 70, 37, "0,0,1,1", config=cfg,
@@ -725,7 +730,7 @@ def test_stream_on_cuda_equals_plain_and_oracle(focus_range, cuda_device):
             np.testing.assert_array_equal(gm, wm_)
             _one_lsb(gv, wv)
         return
-    assert (shift_blend.launches, shift_blend.stream_launches) == (before[0], before[1] + 5)
+    assert _launched(before)["shift_blend"] == 5
     _, wm, fo = _scene(4, 4, 37, 70, 9, 0.3)
     for frame, g, w in zip(frames, got, want):
         one_pass = shift_blend.shift_blend(*to_device_state(frame, wm, fo, cuda_device))
@@ -746,13 +751,12 @@ def test_interpolate_batch_on_cuda_equals_solo_and_cpu(focus_range, cuda_device)
     trajs = ["0,0,1,1", "0.2,0.2,0.8,0.8", "0,0,0.5,0.5"]
     kw = dict(focus=0.2, focus_range=focus_range, progress=False)
     gpu = Interpolator(lf, config=cfg, device=cuda_device, progress=False)
-    before = (shift_blend.launches, allfocus_blend.launches,
-              focus_estimate.launches["exact"])
+    before = profiling.launch_counts()
     got = gpu.interpolate_batch(trajs, **kw)
     # two center groups: one blend launch each, one estimate each
-    after = (shift_blend.launches, allfocus_blend.launches,
-             focus_estimate.launches["exact"])
-    assert [a - b for a, b in zip(after, before)] == (
+    launched = _launched(before)
+    assert [launched[k] for k in ("shift_blend", "allfocus_blend",
+                                  "focus_estimate_exact")] == (
         [0, 2, 2] if focus_range else [2, 0, 0])
     want = Interpolator(lf, config=cfg, device="cpu", progress=False
                         ).interpolate_batch(trajs, **kw)
@@ -787,9 +791,9 @@ def test_forced_view_batches_on_cuda_equal_unbatched(method, focus_range, cuda_d
                                            focus_views=k, budget=b).view_batch or 64) <= 20)
     monkeypatch.setenv("LFI_HBM_BYTES", str(budget))
     assert interp._plan(64, method, k, 0, False).view_batch <= 20
-    before = allfocus_blend.launches if focus_range else shift_blend.launches
+    before = profiling.launch_counts()
     out = interp.interpolate("0,0,1,1", **kw)
-    launched = (allfocus_blend.launches if focus_range else shift_blend.launches) - before
+    launched = _launched(before)["allfocus_blend" if focus_range else "shift_blend"]
     assert launched == (0 if method == "STD" else -(-64 // interp._plan(
         64, method, k, 0, False).view_batch))
     np.testing.assert_array_equal(out.views, ref.views)
@@ -821,10 +825,10 @@ def test_shift_blend_row_blocks_equal_the_frame(focus, cuda_device):
     whole = shift_blend.shift_blend(*args)
     stack = blend_torch.shift_stack(args[0], args[2])
     for r0, hb in _row_blocks(ROW_H):
-        before = shift_blend.launches
+        before = profiling.launch_counts()
         got = shift_blend.shift_blend(*args, row_start=r0, row_count=hb)
         torch.cuda.synchronize()
-        assert shift_blend.launches == before + 1
+        assert _launched(before) == {"shift_blend": 1}
         assert got.shape == (24, 3, hb, 150)
         assert torch.equal(got, whole[:, :, r0:r0 + hb]), (r0, hb)
         _near_tie(got, stack[:, :, r0:r0 + hb], args[1])
@@ -859,11 +863,11 @@ def test_allfocus_blend_row_blocks_equal_the_frame(kind, cuda_device):
     selected = blend_torch.allfocus_selected(imgs, offsets, fmap, tables.decode)
     for r0, hb in _row_blocks(ROW_H):
         block = fmap[r0:r0 + hb].contiguous()
-        before = allfocus_blend.launches
+        before = profiling.launch_counts()
         got = allfocus_blend.allfocus_blend(imgs, weights, offsets, block, tables.decode,
                                             r0, hb)
         torch.cuda.synchronize()
-        assert allfocus_blend.launches == before + 1
+        assert _launched(before) == {"allfocus_blend": 1}
         assert torch.equal(got, whole[:, :, r0:r0 + hb]), (r0, hb)
         _near_tie(got, selected[:, :, r0:r0 + hb], weights)
         _one_lsb(got, allfocus_blend.allfocus_blend_reference(
@@ -879,13 +883,13 @@ def test_estimate_row_blocks_equal_the_frame(radius, exact, cuda_device):
     sel_off, tables = _t(offsets[ids], cuda_device), _tables(0.1, 0.4, 8, cuda_device)
     whole = focus_estimate.focus_estimate(selected, sel_off, tables, radius, exact)
     maps = focus_estimate.cheby_maps(selected, sel_off, tables, radius)
-    rule = "exact" if exact else "fast"
+    rule = "focus_estimate_exact" if exact else "focus_estimate_fast"
     for r0, hb in _row_blocks(ROW_H):
-        before = focus_estimate.launches[rule]
+        before = profiling.launch_counts()
         got = focus_estimate.focus_estimate(selected, sel_off, tables, radius, exact,
                                             row_start=r0, row_count=hb)
         torch.cuda.synchronize()
-        assert focus_estimate.launches[rule] == before + 1
+        assert _launched(before) == {rule: 1}
         assert torch.equal(got, whole[r0:r0 + hb]), (r0, hb)
         assert torch.equal(got, focus_estimate.focus_estimate_reference(
             selected, sel_off, tables, radius, exact, row_start=r0, row_count=hb))
@@ -929,9 +933,9 @@ def test_the_cached_budget_sees_a_tensor_that_fills_the_card(cuda_device):
     peak = first.bytes_unbatched
     fill = torch.empty(capacity.device_hbm_bytes(cuda_device) - peak // 2,
                        dtype=torch.uint8, device=cuda_device)
-    reads = capacity.budget_reads
+    before = profiling.launch_counts()
     filled = plan()
-    assert capacity.budget_reads == reads + 1  # over half the cached budget
+    assert _launched(before) == {"capacity budget reads": 1}  # over half the cached budget
     fresh = capacity.device_hbm_bytes(cuda_device)
     assert filled.batched and filled == capacity.plan_render(
         g, c, h, w, 64, method="TEN", device=cuda_device, budget=fresh)

@@ -24,7 +24,9 @@ from lfinterpolator_tpu.ops import blend_xla, reference
 from lfinterpolator_tpu.ops import estimate_pallas as ep
 from lfinterpolator_tpu.ops import focus as focus_ops
 from lfinterpolator_tpu_torch.ops import focus_estimate, focus_torch
-from lfinterpolator_tpu_torch.state import FocusTables, focus_tables
+from lfinterpolator_tpu_torch.ops.estimate_geometry import FocusTables
+from lfinterpolator_tpu_torch.state import focus_tables
+from lfinterpolator_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -143,11 +145,11 @@ def test_wrapper_takes_the_plain_version_on_cpu(exact):
         np.ascontiguousarray(images[ids][..., :3].transpose(0, 3, 1, 2))
     )
     tables = FocusTables(*(torch.from_numpy(t) for t in focus_tables(focus, frange, steps)))
-    before = dict(focus_estimate.launches)
+    before = profiling.launch_counts()
     got = focus_estimate.focus_estimate(
         selected, torch.from_numpy(offsets[ids]), tables, radius, exact
     )
-    assert focus_estimate.launches == before  # no kernel ran
+    assert profiling.launch_counts() == before  # no kernel ran
     np.testing.assert_array_equal(
         got.numpy(), _port(images, offsets, ids, steps, focus, frange, radius, exact)
     )

@@ -16,7 +16,9 @@ import pytest
 import torch
 
 from lfinterpolator_tpu_torch.ops import focus_estimate, focus_torch
-from lfinterpolator_tpu_torch.state import FocusTables, focus_tables
+from lfinterpolator_tpu_torch.ops.estimate_geometry import FocusTables
+from lfinterpolator_tpu_torch.state import focus_tables
+from lfinterpolator_tpu_torch.utils import profiling
 
 from test_torch_focus import CASES  # the scenes and the two sides, shared
 from test_torch_focus import _case as case
@@ -180,7 +182,7 @@ def test_estimate_wrapper_and_its_parts_on_cpu(exact):
     cheby_map."""
     (selected, offsets, tables), radius = _operands("sign_change")
     h, w = selected.shape[2:]
-    before = dict(focus_estimate.launches)
+    before = profiling.launch_counts()
     want = focus_torch.estimate_focus_map(selected, offsets, tables, radius, exact)
     assert torch.equal(focus_estimate.focus_estimate(selected, offsets, tables, radius, exact),
                        want)
@@ -198,4 +200,4 @@ def test_estimate_wrapper_and_its_parts_on_cpu(exact):
                                  w + 2 * radius[0])
     assert torch.equal(maps[2], focus_torch.cheby_map(
         selected, offsets, tables.candidates[2], radius))
-    assert focus_estimate.launches == before
+    assert profiling.launch_counts() == before

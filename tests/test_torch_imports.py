@@ -1,14 +1,19 @@
 """Import hygiene and the build's failure paths of lfinterpolator_tpu_torch.
 
 The port never imports jax nor any module of the JAX package
-(``lfinterpolator_tpu``), importing it builds nothing, `device="cuda"`
-without a card raises, and a failing nvcc raises with its own stderr.
+(``lfinterpolator_tpu``), importing it builds nothing, its imports point
+down its layers, `device="cuda"` without a card raises, a failing nvcc
+raises with its own stderr, and a kernel launch that the driver refuses
+raises with the CUDA error's text.
 """
 
+import ast
+import contextlib
 import os
 import subprocess
 import sys
 import textwrap
+import types
 
 import numpy as np
 import pytest
@@ -20,6 +25,80 @@ from lfinterpolator_tpu_torch.ops import _build
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = "lfinterpolator_tpu_torch"
+PKG_DIR = os.path.join(ROOT, PKG)
+
+#: The port's layers, top first. A module imports modules of its own layer
+#: and of the layers below it, never of a layer above. A module is named by
+#: its path under the package (``ops.shift_blend``, ``parallel.__init__``);
+#: ``x.*`` is every module under ``x/``. core/, models/ and utils/ have
+#: empty package files, which sit at the bottom.
+LAYERS = [
+    ["__init__", "cli", "api", "streaming", "parallel.*"],
+    ["state", "core.capacity", "utils.transfer"],
+    ["models.pipeline"],
+    ["ops.*"],
+    ["core.geometry", "core.config", "io.*", "utils.profiling", "utils.devices",
+     "utils.progress", "utils.scenes", "utils.metrics",
+     "core.__init__", "models.__init__", "utils.__init__"],
+]
+#: Beyond the layers: the mesh renders through the pipeline and the ops and
+#: holds no host state, so it imports nothing of ``state`` either.
+FORBIDDEN = {"parallel.*": {"state"}}
+
+
+def _modules() -> list[str]:
+    found = []
+    for dirpath, _, files in os.walk(PKG_DIR):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f[:-3]), PKG_DIR)
+                found.append(rel.replace(os.sep, "."))
+    return sorted(found)
+
+
+def _matches(name: str, pattern: str) -> bool:
+    return name.startswith(pattern[:-1]) if pattern.endswith(".*") else name == pattern
+
+
+def _layer(name: str) -> int:
+    layers = [i for i, layer in enumerate(LAYERS) if any(_matches(name, p) for p in layer)]
+    assert len(layers) == 1, f"{name} must sit in one layer of LAYERS, not {layers}"
+    return layers[0]
+
+
+def _as_module(dotted: str) -> str | None:
+    """``lfinterpolator_tpu_torch.x.y`` -> the module ``x.y`` or
+    ``x.y.__init__`` it names; None where it names no file of the package."""
+    rel = dotted[len(PKG) + 1:].replace(".", os.sep) if dotted != PKG else ""
+    base = os.path.join(PKG_DIR, rel)
+    if os.path.isfile(os.path.join(base, "__init__.py")):
+        return (rel.replace(os.sep, ".") + ".__init__").lstrip(".")
+    if os.path.isfile(base + ".py"):
+        return rel.replace(os.sep, ".")
+    return None
+
+
+def _imported(module: str) -> set[str]:
+    """Every module of the package that `module` imports, at its top or
+    inside a function: ``from x import y`` names the module ``x.y`` where
+    there is one, else ``x``."""
+    path = os.path.join(PKG_DIR, module.replace(".", os.sep) + ".py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    package = [PKG, *module.split(".")[:-1]]
+    targets = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            targets += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = ".".join(package[:len(package) - node.level + 1]) if node.level else ""
+            base = ".".join(filter(None, [base, node.module]))
+            for a in node.names:
+                targets.append(f"{base}.{a.name}" if _as_module(f"{base}.{a.name}")
+                               else base)
+    return {_as_module(t) for t in targets
+            if (t == PKG or t.startswith(PKG + ".")) and _as_module(t) is not None}
 
 
 def _fake_nvcc(directory, body: str) -> str:
@@ -129,6 +208,17 @@ def test_package_imports_no_jax_and_builds_nothing(tmp_path):
     assert not marker.exists(), "importing or a CPU render invoked nvcc"
 
 
+@pytest.mark.parametrize("module", _modules())
+def test_imports_point_down_the_layers(module):
+    """No module of the port imports one of a layer above its own (LAYERS),
+    nor what FORBIDDEN keeps from it: the bottom layer imports nothing of the
+    package, and nothing below ``state`` reads the host state."""
+    layer = _layer(module)
+    forbidden = set().union(*(v for p, v in FORBIDDEN.items() if _matches(module, p)))
+    above = sorted(m for m in _imported(module) if _layer(m) < layer or m in forbidden)
+    assert not above, f"{module} (layer {layer + 1}) imports {above}"
+
+
 def test_cuda_device_without_cuda_raises(monkeypatch):
     from lfinterpolator_tpu_torch.api import Interpolator
 
@@ -189,3 +279,36 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+def test_launch_passes_the_stream_last_and_raises_the_cuda_error(monkeypatch):
+    """``_build.launch`` on a fake library: the entry runs with the device
+    current and the device's current stream as its last argument; a
+    launch the driver refuses raises with the entry and the error's text."""
+    calls, devices = [], []
+
+    class Lib:
+        def lfi_quilt_copy(self, *args):
+            calls.append(args)
+            return 0 if len(calls) == 1 else 9
+
+        def lfi_cuda_error_string(self, err):
+            return f"error {err} text".encode()
+
+    def current(device):
+        devices.append(("current_stream", device))
+        return types.SimpleNamespace(cuda_stream=77)
+
+    def device_context(device):
+        devices.append(("device", device))
+        return contextlib.nullcontext()
+
+    monkeypatch.setattr(_build, "load", Lib)
+    monkeypatch.setattr(torch.cuda, "device", device_context)
+    monkeypatch.setattr(torch.cuda, "current_stream", current)
+    _build.launch("lfi_quilt_copy", "cuda:1", 1, None, 3)
+    with pytest.raises(RuntimeError, match=r"^lfi_quilt_copy launch failed: "
+                                           r"CUDA error 9 \(error 9 text\)$"):
+        _build.launch("lfi_quilt_copy", "cuda:1", 4)
+    assert calls == [(1, None, 3, 77), (4, 77)]
+    assert devices == [("device", "cuda:1"), ("current_stream", "cuda:1")] * 2

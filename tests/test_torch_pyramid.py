@@ -33,7 +33,8 @@ from lfinterpolator_tpu_torch.io import LightField
 from lfinterpolator_tpu_torch.models import pipeline
 from lfinterpolator_tpu_torch.ops import estimate_geometry as eg
 from lfinterpolator_tpu_torch.ops import focus_estimate, focus_torch
-from lfinterpolator_tpu_torch.state import FocusTables, allfocus_params, focus_tables
+from lfinterpolator_tpu_torch.ops.estimate_geometry import FocusTables
+from lfinterpolator_tpu_torch.state import allfocus_params, focus_tables
 
 torch.set_num_threads(1)
 

@@ -75,7 +75,8 @@ def test_gate_passes_with_every_gated_row_over_45_db(scene, capsys):
     assert "PARITY.md:421" in out["informational"]["allfocus-fast/STD"]
     assert out["maps_equal_oracle"] == {"STD": True, "TEN": True}
     assert "pyramid_not_run" in out and "pyramid/TEN" not in out["psnr_db"]
-    assert not any(out["launches"].values())  # the CPU launches no kernel
+    # the CPU launches no kernel
+    assert not any(out["launches"].values()) and not any(out["stream_launches"].values())
 
 
 def test_gate_make_scene_equals_the_original():

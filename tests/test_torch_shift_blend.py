@@ -22,6 +22,7 @@ from lfinterpolator_tpu.core import geometry
 from lfinterpolator_tpu.ops import blend_pallas, reference, shift_pallas
 from lfinterpolator_tpu_torch.ops import blend_torch, shift_blend
 from lfinterpolator_tpu_torch.state import to_device_state
+from lfinterpolator_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -96,9 +97,9 @@ def test_render_matches_render_fixed_padded_and_oracle(scene, focus, interpret):
 
 def test_cpu_tensors_never_launch_the_kernel():
     images, wm, _, fo = _scene(4, 4, 48, 64, 8, 0.3)
-    before = shift_blend.launches
+    before = profiling.launch_counts()
     out = shift_blend.shift_blend(*to_device_state(images, wm, fo, "cpu"))
-    assert shift_blend.launches == before
+    assert profiling.launch_counts() == before
     assert out.device.type == "cpu" and out.dtype == torch.uint8
 
 

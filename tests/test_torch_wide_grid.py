@@ -33,6 +33,7 @@ from lfinterpolator_tpu_torch.io import LightField
 from lfinterpolator_tpu_torch.ops import (
     allfocus_blend, blend_torch, quilt, reference, shift_blend)
 from lfinterpolator_tpu_torch.state import allfocus_params, render_params
+from lfinterpolator_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -220,20 +221,18 @@ def _one_lsb(got, want):
 def test_blend_kernels_obey_the_near_tie_rule_at_any_grid(g, cuda_device):
     """Both kernels against their plain versions, with 70 views (two view
     chunks) on a ragged row; rows of the weight matrix alone are bit-equal
-    to the same rows of the whole launch; each launch counts its passes."""
+    to the same rows of the whole launch; each kernel launches once a call,
+    and a launch runs the passes that the library reports."""
     from lfinterpolator_tpu_torch.ops import _build
 
     images, weights, shifts, offsets, fmap, decode = _operands(g, 70, 3, 5, 150, 60,
                                                                cuda_device)
     passes = _build.load().lfi_blend_grid_passes(g)
     assert passes == (1 if g <= 96 else -(-((g + 15) // 16 * 16) // 64))
-    before = (shift_blend.launches, shift_blend.passes,
-              allfocus_blend.launches, allfocus_blend.passes)
+    before = profiling.launch_counts()
     got = shift_blend.shift_blend(images, weights, shifts)
     af = allfocus_blend.allfocus_blend(images, weights, offsets, fmap, decode)
-    assert (shift_blend.launches, shift_blend.passes, allfocus_blend.launches,
-            allfocus_blend.passes) == (before[0] + 1, before[1] + passes,
-                                       before[2] + 1, before[3] + passes)
+    assert profiling.launch_counts() - before == {"shift_blend": 1, "allfocus_blend": 1}
     stack = blend_torch.shift_stack(images, shifts)
     blend_torch.check_bytes(got, blend_torch.exact_sums(stack, weights))
     _one_lsb(got, shift_blend.shift_blend_reference(images, weights, shifts))
@@ -272,9 +271,12 @@ def test_quilt_blend_of_289_images(cuda_device):
     quilt."""
     cols, rows, h, w = 5, 9, 12, 70
     images, weights, shifts, _, _, _ = _operands(289, 45, 3, h, w, 20, cuda_device, seed=2)
-    before = quilt.passes
+    from lfinterpolator_tpu_torch.ops import _build
+
+    before = profiling.launch_counts()
     canvas = quilt.quilt_blend(images, weights, shifts, cols, rows)
-    assert quilt.passes == before + 5
+    assert profiling.launch_counts() - before == {"quilt_blend": 1}
+    assert _build.load().lfi_blend_grid_passes(289) == 5
     views = shift_blend.shift_blend(images, weights, shifts)
     tiles = canvas.reshape(3, rows, h, cols, w).permute(1, 3, 0, 2, 4).reshape(45, 3, h, w)
     assert torch.equal(tiles, views)
@@ -361,18 +363,22 @@ def test_the_tensor_core_sum_keeps_the_rule_where_truncation_bites(g, cuda_devic
 def test_interpolator_renders_a_17x17_grid_on_cuda(case, cuda_device):
     """The normal path on the card at 48x80: maps equal to the CPU's, views
     within the near-tie rule of the CPU's exact sums and 1 LSB of its
-    views; the TEN blends run five passes a launch."""
+    views; a TEN render launches its blend once, five passes a launch."""
     method, focus, focus_range = case
     images = OcclusionScene(COLS, ROWS, 48, 80, plane_foci(0.0, 0.07, 32), [4, 3], 9,
                             "cpu").frame().numpy()
     lf = LightField(images=images, cols=COLS, rows=ROWS)
-    before = (shift_blend.passes, allfocus_blend.passes)
+    before = profiling.launch_counts()
     got = Interpolator(lf, device=cuda_device, progress=False).interpolate(
         TRAJECTORY, focus=focus, focus_range=focus_range, method=method, progress=False)
     want = Interpolator(lf, device="cpu", progress=False).interpolate(
         TRAJECTORY, focus=focus, focus_range=focus_range, method=method, progress=False)
     if method == "TEN":
-        passes = (shift_blend.passes - before[0], allfocus_blend.passes - before[1])
+        from lfinterpolator_tpu_torch.ops import _build
+
+        launched = profiling.launch_counts() - before
+        passes = tuple(launched[k] * _build.load().lfi_blend_grid_passes(COLS * ROWS)
+                       for k in ("shift_blend", "allfocus_blend"))
         assert passes == ((5, 0) if focus_range == 0 else (0, 5))
     assert np.abs(got.views.astype(int) - want.views.astype(int)).max() <= 1
     if focus_range:
