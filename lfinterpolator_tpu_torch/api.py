@@ -22,8 +22,11 @@ plan -- for an all-in-focus one), sizes itself against the device's free
 memory (``core/capacity.plan_render``) and runs the pipeline on the
 Interpolator's device: in one pass, or, when the output does not fit, in
 view batches, each downloaded into pinned host memory while the next one
-renders (``_view_batched``). ``device="cuda"`` without a CUDA device
-raises; nothing runs on the CPU instead.
+renders (``_view_batched``). A one-pass frame on a card renders and
+downloads in row bands where its shape gives it several
+(``transfer.band_count``): each band's download overlaps the next band's
+blend (``_OnePass``). ``device="cuda"`` without a CUDA device raises;
+nothing runs on the CPU instead.
 
 With ``mesh=`` (``parallel.mesh.make_mesh``, after
 ``parallel.distributed.initialize``) every rank of the process group
@@ -40,6 +43,8 @@ the host clock from a barrier to a barrier across the ranks.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from collections.abc import Callable
 
 import numpy as np
 import torch
@@ -153,6 +158,31 @@ def _group_by_center(centers: np.ndarray, tolerance: float) -> list[list[int]]:
     return list(groups.values())
 
 
+@dataclasses.dataclass(frozen=True)
+class _OnePass:
+    """The step of a render in one pass on one device (no view batches, no
+    mesh). Called, it renders the frame on the device: -> (views [V, C, H,
+    W], maps [2, H, W] or None). ``download`` renders it into host memory
+    in its row `bands` (``transfer.frame_bands``), each downloaded while
+    the next renders."""
+
+    blend: Callable  # (maps, r0, hb) -> views [V, C, hb, W]; hb None: the frame
+    estimate: Callable | None  # () -> maps [2, H, W]; None for a fixed focus
+    bands: list[tuple[int, int]]
+
+    def __call__(self):
+        maps = None if self.estimate is None else self.estimate()
+        return self.blend(maps, 0, None), maps
+
+    def download(self, downloader: transfer.Downloader):
+        """-> (host views [V, H, W, C], host maps [2, H, W] or None),
+        rendered and downloaded band by band (``Downloader.start_bands``)."""
+        maps = None if self.estimate is None else self.estimate()
+        out = downloader.start_bands(functools.partial(self.blend, maps), self.bands,
+                                     maps).wait()
+        return out if maps is not None else (out, None)
+
+
 class Interpolator:
     """Load a light field once; render novel-view sets many times."""
 
@@ -261,13 +291,14 @@ class Interpolator:
         with profiling.span("lfi.upload"):
             weights, shifts = state.upload_params(wm, fo, self.device)
 
-        def render(rows: torch.Tensor) -> torch.Tensor:
-            return pipeline.render_fixed_focus(self.images, rows, shifts,
-                                               method=method_key)
+        def render(rows: torch.Tensor, r0: int = 0, hb: int | None = None) -> torch.Tensor:
+            return pipeline.render_fixed_focus(self.images, rows, shifts, method=method_key,
+                                               row_start=r0, row_count=hb)
 
         if plan.batched:
             return lambda: (self._view_batched(weights, plan.view_batch, render), None)
-        return lambda: (render(weights), None)
+        return _OnePass(lambda maps, r0, hb: render(weights, r0, hb), None,
+                        self._bands(len(wm), allfocus=False))
 
     def _allfocus_step(self, params: state.AllFocusParams, cfg: RenderConfig,
                        method_key: str, progress: bool, extra: int = 0):
@@ -285,21 +316,28 @@ class Interpolator:
         if progress:
             print("Estimating focus map...")
 
-        def step():
-            maps = pipeline.compute_focus_maps(
+        def estimate() -> torch.Tensor:
+            return pipeline.compute_focus_maps(
                 self.images, offsets, ids, tables, radius=params.radius,
                 filter_radius=params.filter_radius,
                 exact_taps=cfg.exact_focus_taps, pyramid=params.pyramid,
             )
 
-            def render(rows: torch.Tensor) -> torch.Tensor:
-                return pipeline.blend_all_focus(self.images, rows, offsets, maps,
-                                                tables.decode, method=method_key)
+        def render(rows: torch.Tensor, maps: torch.Tensor, r0: int = 0,
+                   hb: int | None = None) -> torch.Tensor:
+            block = maps if hb is None else maps[:, r0:r0 + hb]
+            return pipeline.blend_all_focus(self.images, rows, offsets, block,
+                                            tables.decode, method=method_key,
+                                            row_start=r0, row_count=hb)
 
-            if plan.batched:
-                return self._view_batched(weights, plan.view_batch, render), maps
-            return render(weights), maps
-        return step
+        if plan.batched:
+            def step():
+                maps = estimate()
+                return self._view_batched(weights, plan.view_batch,
+                                          lambda rows: render(rows, maps)), maps
+            return step
+        return _OnePass(lambda maps, r0, hb: render(weights, maps, r0, hb), estimate,
+                        self._bands(len(params.weights), allfocus=True))
 
     def _check_mesh(self, phases: dict[str, int], what: str, extra: int) -> None:
         """Raise ValueError with the per-rank arithmetic and
@@ -382,6 +420,21 @@ class Interpolator:
         out = self._download.start(views, maps).wait()
         return out if maps is not None else (out, None)
 
+    def _bands(self, v: int, allfocus: bool) -> list[tuple[int, int]]:
+        """The row bands of a one-pass frame of `v` views
+        (``transfer.frame_bands``)."""
+        g, c, h, w = self.images.shape
+        return transfer.frame_bands(self.device, g, c, h, w, v, allfocus=allfocus)
+
+    def _host_frame(self, step) -> tuple[np.ndarray, np.ndarray | None]:
+        """Run `step` once -> its output on the host: a one-pass step of
+        several row bands rendered and downloaded band by band
+        (``_OnePass.download``), any other rendered whole, gathered and
+        downloaded (``_to_host``). For ``interpolate``."""
+        if isinstance(step, _OnePass) and len(step.bands) > 1:
+            return step.download(self._download)
+        return self._to_host(*self._collect(*step()))
+
     def _run(self, step, benchmark_runs: int, progress: bool):
         """-> (step(), the times of `benchmark_runs` more runs)."""
         out = step()
@@ -422,12 +475,28 @@ class Interpolator:
         (else the exact sweep, as ``api.py:690-693`` routes it). A render
         whose output does not fit the device runs in view batches; one
         that cannot fit even so raises before allocating.
+
+        A frame rendered in one pass on one card is downloaded in row
+        bands where ``transfer.band_count`` gives its shape more than one
+        (the longer its blend against its copy to the host, the more, at
+        most 8): the estimate and filter run on the whole frame and their
+        maps go to the host as one copy, then each band of rows is blended
+        and copied into its rows of the one pinned host array while the
+        next band blends, so the copy starts after the first band, not
+        after the whole blend. A short blend (HCI's 512² frames), view
+        batches, a mesh, the CPU and `benchmark_runs > 0` download the
+        whole frame after its render, as ``interpolate_batch`` and
+        ``render_quilt`` always do; the host arrays are the same bytes
+        either way.
         """
         with profiling.span("lfi.interpolate"):
             cfg, method_key = self._config(focus, focus_range, method, effect, aspect)
             step = self._render_step(trajectory, cfg, method_key, progress)
-            out, run_times = self._run(step, benchmark_runs, progress)
-            views_np, maps_np = self._to_host(*self._collect(*out))
+            if benchmark_runs > 0:  # the step is timed rendering whole frames
+                out, run_times = self._run(step, benchmark_runs, progress)
+                views_np, maps_np = self._to_host(*self._collect(*out))
+            else:
+                (views_np, maps_np), run_times = self._host_frame(step), []
             return RenderResult(
                 views=views_np, maps=maps_np, run_times_s=run_times, config=cfg,
                 device=str(self.device),

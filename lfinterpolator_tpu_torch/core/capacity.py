@@ -50,7 +50,9 @@ What a render holds beyond the stack, uint8 unless noted (``plan_render``):
             [2, H, W] and the box filter's int64 integral image. The clean
             flags and their temporaries (under 64 MiB) go to the headroom;
   render:   per view the kernel's planar output [C, H, W] and its
-            [H, W, C] copy for the download; STD's plain ops add
+            [H, W, C] copy for the download (a frame downloaded in row
+            bands, ``utils/transfer.py``, holds the whole [H, W, C] copy
+            and one band's planar output, less); STD's plain ops add
             ``blend_torch.temp_bytes`` (the shifted stack, its f32 copy and
             the f32 product); an all-focus render keeps its maps.
 

@@ -156,7 +156,7 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             signatures = {
                 # (img, w, shifts, out, G, C, H, W, V, r0, hb, stream)
                 "lfi_shift_blend": [ptr] * 4 + [i32] * 7 + [ptr],
@@ -177,6 +177,8 @@ def load() -> ctypes.CDLL:
                 "lfi_quilt_blend": [ptr] * 4 + [i32] * 6 + [ptr],
                 # (tiles, canvas, C, th, tw, cols, rows, stream)
                 "lfi_quilt_copy": [ptr] * 2 + [i32] * 5 + [ptr],
+                # (dst, dst_pitch, src, src_pitch, width, height, stream)
+                "lfi_copy_rows_to_host": [ptr, i64, ptr, i64, i64, i64, ptr],
                 "lfi_shift_blend_max_grid": [],
                 "lfi_allfocus_blend_max_grid": [],
                 # (G): passes over the images; shared memory; blocks per SM

@@ -13,9 +13,10 @@ repeats the same work.
 ``event_ms(fn)`` is the CUDA-event mean of back-to-back runs that the
 scripts time kernels with. ``count(key)`` adds one to the port's one table
 of counts (each kernel wrapper's launches, the capacity plan's free-memory
-readings), which ``launch_counts()`` copies and ``reset_launch_counts()``
-clears. This module is the port's bottom layer: it imports nothing of the
-package, and every layer above counts and marks its spans through it.
+readings, the downloads' row bands), which ``launch_counts()`` copies and
+``reset_launch_counts()`` clears. This module is the port's bottom layer:
+it imports nothing of the package, and every layer above counts and marks
+its spans through it.
 
 ``trace(log_dir)`` is the counterpart of the JAX module's ``trace`` (a
 ``jax.profiler`` trace): a ``torch.profiler`` trace of the block, CPU
@@ -49,7 +50,11 @@ on the calling thread:
   lfi.blend              a blend launch (each view batch's)
   lfi.download.start     ``transfer.Downloader.start``: the [N, C, H, W] ->
                          [N, H, W, C] copy, the maps' clone, the pinned host
-                         memory and the enqueued copies
+                         memory and the enqueued copies; in a frame
+                         downloaded in row bands (``start_bands``) one span
+                         for the maps' copy and one for each band's HWC
+                         copy and enqueued 2-D copy, each after that band's
+                         ``lfi.blend``
   lfi.download.wait      ``transfer.Pending.wait``: the caller waiting for
                          the copies to reach host memory
 
@@ -221,6 +226,9 @@ def trace(log_dir: str):
 
 #: The counts that ``count`` adds to and ``launch_counts`` reads.
 _counts: collections.Counter = collections.Counter()
+#: The keys of that table that count something other than a kernel's
+#: launches.
+OTHER_COUNTS = ("capacity budget reads", "download bands")
 _counts_lock = threading.Lock()
 
 def count(key: str) -> None:
@@ -233,9 +241,11 @@ def launch_counts() -> collections.Counter:
     """A copy of the table of counts: every launch of a CUDA kernel by its
     wrapper, under the kernel's name (the names of ``chip_smoke.py``'s
     kernels line; an estimate counts once, under ``focus_estimate_<tap
-    rule>``), and ``capacity budget reads``, the capacity plan's readings
-    of the device's free memory (``core/capacity.py``). Plain-version calls
-    are never counted. A key never counted reads 0."""
+    rule>``), ``capacity budget reads``, the capacity plan's readings of the
+    device's free memory (``core/capacity.py``), and ``download bands``, the
+    row bands of each download (``utils/transfer.py``; 1 for a download of
+    whole frames, on the CPU too). Plain-version calls are never counted as
+    launches. A key never counted reads 0."""
     with _counts_lock:
         return collections.Counter(_counts)
 

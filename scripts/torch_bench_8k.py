@@ -224,11 +224,14 @@ def verify_band(images, views, maps, method, config=None) -> dict:
 def timed_phases(interp, device):
     """Time the estimate and the blend (``profiling.Timer``: CUDA events on
     the card) and the download (host clock, after a synchronize) of the
-    Interpolator's calls inside the block; yields {phase: seconds}."""
+    Interpolator's calls inside the block; yields {phase: seconds}. Inside
+    the block a frame renders whole, not in the row bands whose downloads
+    overlap the blend (``utils/transfer.py``), so the phases run one after
+    another."""
     import torch
 
     from lfinterpolator_tpu_torch.models import pipeline
-    from lfinterpolator_tpu_torch.utils import profiling
+    from lfinterpolator_tpu_torch.utils import profiling, transfer
 
     times: dict[str, float] = {}
     phase = {"compute_focus_maps": "estimate", "blend_all_focus": "blend"}
@@ -252,16 +255,18 @@ def timed_phases(interp, device):
         times["download"] = times.get("download", 0.0) + time.perf_counter() - t0
         return out
 
-    download = interp._to_host
+    download, bands = interp._to_host, transfer.frame_bands
     for name, fn in saved:
         setattr(pipeline, name, timed(name, fn))
     interp._to_host = to_host
+    transfer.frame_bands = lambda device, g, c, h, w, v, allfocus: transfer.row_bands(h, 1)
     try:
         yield times
     finally:
         for name, fn in saved:
             setattr(pipeline, name, fn)
         del interp._to_host
+        transfer.frame_bands = bands
 
 
 def host_peak_gib() -> float:

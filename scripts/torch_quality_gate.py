@@ -205,9 +205,16 @@ def run_gate(size=(192, 256), grid=(6, 6), scene="plane", device="cuda",
         "informational": {k_: INFORMATIONAL[k_] for k_ in results if k_ in INFORMATIONAL},
         "maps_equal_oracle": maps_exact,
         **payload_extra,
-        "launches": profiling.launch_counts(),
-        "stream_launches": stream_launches,
+        "launches": _launches(profiling.launch_counts()),
+        "stream_launches": _launches(stream_launches),
     }
+
+
+def _launches(counts) -> dict:
+    """The kernel launches of a copy of ``profiling.launch_counts()``."""
+    from lfinterpolator_tpu_torch.utils import profiling
+
+    return {k: v for k, v in counts.items() if k not in profiling.OTHER_COUNTS}
 
 
 def parse_args(argv=None):
