@@ -563,7 +563,8 @@ class Interpolator:
                         device=self.device)
 
                 def step() -> torch.Tensor:
-                    return quilt.quilt_blend(self.images, weights, shifts, cols, rows)
+                    with profiling.span("lfi.blend"):
+                        return quilt.quilt_blend(self.images, weights, shifts, cols, rows)
             else:
                 resize = 0 if native else 4 * n * 3 * (lf.height * lf.width
                                                        + th * lf.width + th * tw)
@@ -578,10 +579,11 @@ class Interpolator:
                     return quilt.assemble_quilt(views, cols, rows, tile_size)
 
             q, run_times = self._run(step, benchmark_runs, progress)
-            return QuiltResult(
-                quilt=quilt_torch.to_hwc(q).cpu().numpy(), run_times_s=run_times,
-                config=cfg, fused=fused,
-            )
+            with profiling.span("lfi.quilt.hwc"):
+                q = quilt_torch.to_hwc(q)
+            with profiling.span("lfi.quilt.download"):
+                q = q.cpu().numpy()
+            return QuiltResult(quilt=q, run_times_s=run_times, config=cfg, fused=fused)
 
     def interpolate_batch(
         self,

@@ -47,7 +47,8 @@ on the calling thread:
   lfi.estimate.flags     the exact rule's clean flags, in torch ops, inside
                          the estimate's kernels (CUDA only)
   lfi.filter             the focus map's box filter
-  lfi.blend              a blend launch (each view batch's)
+  lfi.blend              a blend launch (each view batch's; a fused
+                         quilt's ``quilt.quilt_blend``)
   lfi.download.start     ``transfer.Downloader.start``: the [N, C, H, W] ->
                          [N, H, W, C] copy, the maps' clone, the pinned host
                          memory and the enqueued copies; in a frame
@@ -57,6 +58,10 @@ on the calling thread:
                          ``lfi.blend``
   lfi.download.wait      ``transfer.Pending.wait``: the caller waiting for
                          the copies to reach host memory
+  lfi.quilt.hwc          ``render_quilt``: the canvas's [C, H, W] ->
+                         [H, W, C] copy (``quilt_torch.to_hwc``)
+  lfi.quilt.download     ``render_quilt``: the canvas's copy to a host
+                         array
 
 The pipeline's and the download's spans open wherever those layers run (a
 stream's frames and a mesh's blocks too); the others are the API's.

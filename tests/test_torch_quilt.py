@@ -328,3 +328,45 @@ def test_quilt_tiles_follow_geometry(small_lf):
                              progress=False)
     np.testing.assert_array_equal(q.quilt, _montage(res.views, 5, 9))
     assert q.fused and q.config.effect == 1.5
+
+
+#: The benchmark's Looking Glass configuration (``lfibench/configs/
+#: quilt5x9_1080p.json``) at the tests' size: an 8x8 grid, 45 views, TEN.
+QUILT_CONFIG = {"cols": 8, "rows": 8, "height": 24, "width": 40, "views": 45, "method": "TEN",
+                "effect": 3.0, "aspect": 1.0, "rehearsal": True}
+
+
+@pytest.mark.parametrize("trajectory, focus", [("0,0.25,1,0.25", 0.3), ("0,0.9,1,0.9", 0.05)])
+def test_a_looking_glass_quilt_holds_to_the_benchmark_reference_tile_by_tile(trajectory, focus):
+    """The fused route on the plain path: every tile of a 5x9 quilt of an
+    8x8 grid's 45 views (horizontal sweeps, the benchmark's quilt traffic)
+    within the near-tie rule of the plain reference's exact sums for its
+    view, tile i at (i // 5, i % 5); two tiles swapped, or one byte moved
+    by 2, break the rule."""
+    from lfibench.reference import render as bench_reference
+    from lfibench.scene import OcclusionScene, plane_foci
+
+    h, w = QUILT_CONFIG["height"], QUILT_CONFIG["width"]
+    images = OcclusionScene(8, 8, h, w, plane_foci(0.1, 0.3, 32), [4, 3], 21, "cpu").frame()
+    interp = Interpolator(LightField(images.numpy(), 8, 8), config=RenderConfig(view_count=45),
+                          device="cpu", progress=False)
+    res = interp.render_quilt(trajectory, focus=focus, method="TEN", cols=5, rows=9,
+                              progress=False)
+    assert res.fused and res.quilt.shape == (9 * h, 5 * w, 3)
+    ref = bench_reference.render(QUILT_CONFIG, images.permute(0, 3, 1, 2).contiguous(),
+                                 trajectory, focus, 0.0)
+
+    def breaks(canvas, i):
+        r, c = divmod(i, 5)
+        tile = torch.from_numpy(np.ascontiguousarray(canvas[r * h:(r + 1) * h,
+                                                            c * w:(c + 1) * w]))
+        one = {"stack": ref["stack"], "weights": ref["weights"][i:i + 1]}
+        return bench_reference.compare(one, tile[None], None)["view_bytes_off_rule"]
+
+    assert [breaks(res.quilt, i) for i in range(45)] == [0] * 45
+    swapped = res.quilt.copy()
+    swapped[:h, w:2 * w], swapped[h:2 * h, :w] = res.quilt[h:2 * h, :w], res.quilt[:h, w:2 * w]
+    assert breaks(swapped, 1) > 0 and breaks(swapped, 5) > 0
+    off = res.quilt.copy()
+    off[5 * h + 3, 2 * w + 7, 1] ^= 2  # view 27
+    assert [i for i in range(45) if breaks(off, i)] == [27]

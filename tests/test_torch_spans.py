@@ -24,6 +24,7 @@ torch.set_num_threads(1)
 PACKAGE = pathlib.Path(__file__).resolve().parent.parent / "lfinterpolator_tpu_torch"
 API = {"lfi.params", "lfi.plan", "lfi.upload"}
 DOWNLOAD = {"lfi.download.start", "lfi.download.wait"}
+QUILT_HOST = {"lfi.quilt.hwc", "lfi.quilt.download"}
 #: Each render kind: the call, its top span and the spans inside it.
 KINDS = {
     "fixed": (lambda i: i.interpolate("0,0,1,1", focus=0.1, method="TEN", progress=False),
@@ -34,7 +35,7 @@ KINDS = {
                  API | {"lfi.estimate", "lfi.filter", "lfi.blend"} | DOWNLOAD),
     "quilt": (lambda i: i.render_quilt("0,0,1,1", focus=0.1, method="TEN", cols=2, rows=2,
                                        progress=False),
-              "lfi.render_quilt", API),
+              "lfi.render_quilt", API | {"lfi.blend"} | QUILT_HOST),
     "batch": (lambda i: i.interpolate_batch(["0,0,1,1", "0.2,0.2,0.8,0.8"], focus=0.1,
                                             method="STD", progress=False),
               "lfi.interpolate_batch", API | {"lfi.blend"} | DOWNLOAD),
@@ -78,6 +79,28 @@ def test_the_spans_of_a_call_follow_its_steps_in_order(interp, tmp_path):
     order = [e["name"] for e in sorted(_spans(tmp_path), key=lambda e: float(e["ts"]))]
     assert order == ["lfi.interpolate", "lfi.params", "lfi.plan", "lfi.upload", "lfi.estimate",
                      "lfi.filter", "lfi.blend", "lfi.download.start", "lfi.download.wait"]
+
+
+@pytest.mark.parametrize("method, order", [
+    ("TEN", ["lfi.render_quilt", "lfi.params", "lfi.upload", "lfi.plan", "lfi.blend",
+             "lfi.quilt.hwc", "lfi.quilt.download"]),
+    ("STD", ["lfi.render_quilt", "lfi.params", "lfi.plan", "lfi.upload", "lfi.blend",
+             "lfi.quilt.hwc", "lfi.quilt.download"]),
+])
+def test_a_quilt_names_its_blend_then_its_canvas_on_the_way_to_the_host(interp, method, order,
+                                                                        tmp_path):
+    """Both routes of ``render_quilt`` (TEN: the fused blend; STD: the views,
+    then the tile copy) end with the canvas's HWC copy and its download,
+    each in a span of its own inside the call, after the blend."""
+    with profiling.trace(str(tmp_path)):
+        res = interp.render_quilt("0,0,1,1", focus=0.1, method=method, cols=2, rows=2,
+                                  progress=False)
+    assert res.fused is (method == "TEN") and res.quilt.shape == (2 * 24, 2 * 40, 3)
+    spans = sorted(_spans(tmp_path), key=lambda e: float(e["ts"]))
+    assert [e["name"] for e in spans] == order
+    hwc, download = spans[-2], spans[-1]
+    assert float(spans[-3]["ts"]) + float(spans[-3]["dur"]) <= float(hwc["ts"])
+    assert float(hwc["ts"]) + float(hwc["dur"]) <= float(download["ts"])
 
 
 @pytest.mark.parametrize("kind", sorted(KINDS))
