@@ -530,7 +530,10 @@ class Interpolator:
         (h % 8 != 0 or w % 128 != 0) to the two-stage route; the port's
         kernel takes every geometry, so only method, focus range and tile
         size decide. `benchmark_runs` times the whole step: render and
-        assembly for the two-stage route.
+        assembly for the two-stage route. Either route's canvas is
+        downloaded whole through ``transfer.Downloader.start``, as a
+        one-image frame, into pinned host memory that the returned quilt
+        then owns.
         """
         with profiling.span("lfi.render_quilt"):
             cfg, method_key = self._config(focus, focus_range, method, effect, aspect)
@@ -580,9 +583,9 @@ class Interpolator:
 
             q, run_times = self._run(step, benchmark_runs, progress)
             with profiling.span("lfi.quilt.hwc"):
-                q = quilt_torch.to_hwc(q)
+                pending = self._download.start(q[None])
             with profiling.span("lfi.quilt.download"):
-                q = q.cpu().numpy()
+                q = pending.wait()[0]
             return QuiltResult(quilt=q, run_times_s=run_times, config=cfg, fused=fused)
 
     def interpolate_batch(

@@ -59,9 +59,11 @@ on the calling thread:
   lfi.download.wait      ``transfer.Pending.wait``: the caller waiting for
                          the copies to reach host memory
   lfi.quilt.hwc          ``render_quilt``: the canvas's [C, H, W] ->
-                         [H, W, C] copy (``quilt_torch.to_hwc``)
-  lfi.quilt.download     ``render_quilt``: the canvas's copy to a host
-                         array
+                         [H, W, C] copy and its enqueued copy to pinned
+                         memory (an ``lfi.download.start`` inside)
+  lfi.quilt.download     ``render_quilt``: the wait until the caller holds
+                         the canvas in host memory (an
+                         ``lfi.download.wait`` inside)
 
 The pipeline's and the download's spans open wherever those layers run (a
 stream's frames and a mesh's blocks too); the others are the API's.

@@ -18,7 +18,9 @@ band blends. The copy of the frame then starts after its first band, not
 after its whole blend. A frame whose blend and HWC copy are short against
 the fixed cost of a band (``band_count`` is 1: HCI's 512² frames) is
 downloaded whole, by ``start``, as are view batches, the stream's frames,
-a mesh's gathered views and everything on the CPU.
+a mesh's gathered views and everything on the CPU. So is a quilt's canvas
+(``Interpolator.render_quilt``), as a one-image frame, into pinned memory
+that the caller then owns.
 
 The host memory comes from PyTorch's caching host allocator (``host_empty``)
 and is handed to the caller as it is: the arrays own it, and it returns to

@@ -685,6 +685,46 @@ def test_render_quilt_on_cuda_equals_cpu(kw, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("method", ["TEN", "STD"], ids=["fused", "two_stage"])
+def test_render_quilt_downloads_its_canvas_into_pinned_memory_it_hands_over(
+        method, cuda_device, monkeypatch):
+    """Both routes download the canvas whole through the Interpolator's
+    ``transfer.Downloader`` (one band a call): the quilt is the canvas's
+    [H, W, C] bytes, in pinned host memory, and a kept quilt is not touched
+    by a later call. 70 px tiles: a width no multiple of 128."""
+    from lfinterpolator_tpu_torch.core.config import RenderConfig
+    from lfinterpolator_tpu_torch.api import Interpolator
+    from lfinterpolator_tpu_torch.utils import transfer
+
+    canvases = []
+    original = transfer.Downloader.start
+
+    def start(self, views, maps=None, out=None):
+        canvases.append(quilt_torch.to_hwc(views[0]).cpu().numpy())
+        return original(self, views, maps, out)
+
+    monkeypatch.setattr(transfer.Downloader, "start", start)
+    images, _, _ = _scene(4, 4, 24, 70, 1, 0.0, seed=5)
+    interp = Interpolator(LightField(images, 4, 4), config=RenderConfig(focus_steps=8),
+                          device=cuda_device, progress=False)
+    kept = []
+    for focus in (0.1, 0.6):
+        before = profiling.launch_counts()
+        res = interp.render_quilt("0,0,1,1", focus=focus, method=method, cols=3, rows=2,
+                                  progress=False)
+        assert res.fused is (method == "TEN")
+        assert _launched(before)["download bands"] == 1
+        assert res.quilt.shape == (2 * 24, 3 * 70, 3) and res.quilt.flags.c_contiguous
+        assert np.array_equal(res.quilt, canvases[-1])
+        assert torch.from_numpy(res.quilt).is_pinned()
+        kept.append((res.quilt, res.quilt.copy()))
+    assert len(canvases) == 2 and not np.array_equal(canvases[0], canvases[1])
+    assert not np.shares_memory(kept[0][0], kept[1][0])
+    for quilt_np, copy in kept:
+        np.testing.assert_array_equal(quilt_np, copy)
+
+
+@pytest.mark.cuda
 def test_interpolator_pyramid_on_cuda_equals_cpu(cuda_device):
     from lfinterpolator_tpu_torch.core.config import RenderConfig
     from lfinterpolator_tpu_torch.api import Interpolator

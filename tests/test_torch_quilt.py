@@ -31,6 +31,7 @@ from lfinterpolator_tpu_torch.api import Interpolator, QuiltResult
 from lfinterpolator_tpu_torch.io import LightField
 from lfinterpolator_tpu_torch.ops import quilt, quilt_torch
 from lfinterpolator_tpu_torch.state import render_params, to_device_state
+from lfinterpolator_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -174,6 +175,34 @@ def test_render_quilt_matches_jax(small_lf, kw):
         np.testing.assert_array_equal(got.quilt, _montage(res.views, qc, qr))
     else:
         assert np.abs(got.quilt.astype(int) - want.quilt.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(method="TEN"), dict(method="STD"), dict(method="TEN", focus_range=0.3),
+     dict(method="TEN", tile_size=(30, 50))],
+    ids=["fused", "std", "allfocus", "resized"],
+)
+def test_render_quilt_downloads_its_canvas_whole_once_a_call(small_lf, kw):
+    """Either route hands its canvas to the Interpolator's downloader as
+    one whole frame (one ``download bands`` a call), and the quilt is a
+    C-contiguous array of its own: a kept quilt survives a later call."""
+    images, (cols, rows) = small_lf
+    interp = Interpolator(LightField(images, cols, rows), config=CONFIG, device="cpu",
+                          progress=False)
+    kept = []
+    for focus in (0.1, 0.4):
+        before = profiling.launch_counts()
+        res = interp.render_quilt("0,0,1,1", focus=focus, cols=3, rows=2, progress=False,
+                                  **kw)
+        counted = profiling.launch_counts() - before
+        assert counted["download bands"] == 1
+        assert res.quilt.dtype == np.uint8 and res.quilt.flags.c_contiguous
+        kept.append((res.quilt, res.quilt.copy()))
+    assert not np.shares_memory(kept[0][0], kept[1][0])
+    assert not np.array_equal(kept[0][1], kept[1][1])
+    for quilt_np, copy in kept:
+        np.testing.assert_array_equal(quilt_np, copy)
 
 
 def test_render_quilt_benchmark_and_errors(small_lf, tmp_path):

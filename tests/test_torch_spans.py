@@ -35,7 +35,7 @@ KINDS = {
                  API | {"lfi.estimate", "lfi.filter", "lfi.blend"} | DOWNLOAD),
     "quilt": (lambda i: i.render_quilt("0,0,1,1", focus=0.1, method="TEN", cols=2, rows=2,
                                        progress=False),
-              "lfi.render_quilt", API | {"lfi.blend"} | QUILT_HOST),
+              "lfi.render_quilt", API | {"lfi.blend"} | QUILT_HOST | DOWNLOAD),
     "batch": (lambda i: i.interpolate_batch(["0,0,1,1", "0.2,0.2,0.8,0.8"], focus=0.1,
                                             method="STD", progress=False),
               "lfi.interpolate_batch", API | {"lfi.blend"} | DOWNLOAD),
@@ -83,24 +83,34 @@ def test_the_spans_of_a_call_follow_its_steps_in_order(interp, tmp_path):
 
 @pytest.mark.parametrize("method, order", [
     ("TEN", ["lfi.render_quilt", "lfi.params", "lfi.upload", "lfi.plan", "lfi.blend",
-             "lfi.quilt.hwc", "lfi.quilt.download"]),
+             "lfi.quilt.hwc", "lfi.download.start", "lfi.quilt.download",
+             "lfi.download.wait"]),
     ("STD", ["lfi.render_quilt", "lfi.params", "lfi.plan", "lfi.upload", "lfi.blend",
-             "lfi.quilt.hwc", "lfi.quilt.download"]),
+             "lfi.quilt.hwc", "lfi.download.start", "lfi.quilt.download",
+             "lfi.download.wait"]),
 ])
 def test_a_quilt_names_its_blend_then_its_canvas_on_the_way_to_the_host(interp, method, order,
                                                                         tmp_path):
     """Both routes of ``render_quilt`` (TEN: the fused blend; STD: the views,
     then the tile copy) end with the canvas's HWC copy and its download,
-    each in a span of its own inside the call, after the blend."""
+    each in a span of its own inside the call, after the blend: the
+    downloader's ``start`` opens inside the HWC span and its ``wait``
+    inside the download span."""
     with profiling.trace(str(tmp_path)):
         res = interp.render_quilt("0,0,1,1", focus=0.1, method=method, cols=2, rows=2,
                                   progress=False)
     assert res.fused is (method == "TEN") and res.quilt.shape == (2 * 24, 2 * 40, 3)
     spans = sorted(_spans(tmp_path), key=lambda e: float(e["ts"]))
     assert [e["name"] for e in spans] == order
-    hwc, download = spans[-2], spans[-1]
-    assert float(spans[-3]["ts"]) + float(spans[-3]["dur"]) <= float(hwc["ts"])
-    assert float(hwc["ts"]) + float(hwc["dur"]) <= float(download["ts"])
+    blend, hwc, start, download, wait = spans[-5:]
+
+    def end(e):
+        return float(e["ts"]) + float(e["dur"])
+
+    assert end(blend) <= float(hwc["ts"])
+    assert end(hwc) <= float(download["ts"])
+    assert float(hwc["ts"]) <= float(start["ts"]) and end(start) <= end(hwc) + 1e-3
+    assert float(download["ts"]) <= float(wait["ts"]) and end(wait) <= end(download) + 1e-3
 
 
 @pytest.mark.parametrize("kind", sorted(KINDS))
