@@ -9,17 +9,34 @@ The JAX package expresses the overlap as a prefetch queue over its
 asynchronous dispatch. The CUDA form of it:
 
     decode thread:    frames -> pinned host buffers         (prefetch + 1)
-    upload stream:    pinned buffer -> device frame t+1     (event)
+    upload stream:    pinned buffer -> device frame t+1     (event; enqueued
+                                                            by the decode
+                                                            thread)
     current stream:   planar copy + render of frame t       (waits on it)
     download stream:  views of frame t-1 -> pinned memory   (event)
     writer pool:      PNG encode (``render_to_dir``)
 
 At most `prefetch` renders are in flight before the oldest one is
-downloaded and yielded. A fixed-focus TEN frame is one ``shift_blend``
-launch on the raw stack: its operand load is the clamp-shift that the JAX
-package's ``shift_pallas._shift_kernel`` (K2) computed into a tiled
-intermediate, so no shifted or tile-padded stack exists and every geometry
-streams. A fixed-focus STD frame is the plain ops; an all-focus frame is
+downloaded and yielded. The stream's spans (``utils/profiling.span``):
+
+    lfi.stream.feed    decode thread: one host frame into its pinned buffer
+                       (a buffer's first allocation too; not the wait for
+                       the slot's last upload)
+    lfi.stream.take    render loop: the wait for the next uploaded frame,
+                       its event and the planar copy's launch
+    lfi.stream.frame   one frame's render and ``Downloader.start`` (its
+                       ``lfi.estimate``, ``lfi.filter``, ``lfi.blend`` and
+                       ``lfi.download.start`` inside)
+    lfi.stream.drain   the wait for the oldest frame's download (its
+                       ``lfi.download.wait`` inside), the last ones too
+
+and its counter, ``stream stalls``: the frames for which the render loop
+found no uploaded frame ready when it asked (``profiling.launch_counts``).
+
+A fixed-focus TEN frame is one ``shift_blend`` launch on the raw stack:
+its operand load is the clamp-shift that the JAX package's
+``shift_pallas._shift_kernel`` (K2) computed into a tiled intermediate, so
+no shifted or tile-padded stack exists and every geometry streams. A fixed-focus STD frame is the plain ops; an all-focus frame is
 a per-pixel blend with the maps (estimate, filter) of the first of every
 ``focus_map_refresh`` N frames: at N = 1 every frame's own.
 """
@@ -43,7 +60,7 @@ from .core.config import RenderConfig
 from .io import writer
 from .models import pipeline
 from .ops import blend_torch
-from .utils import devices, transfer
+from .utils import devices, profiling, transfer
 
 
 @dataclasses.dataclass
@@ -60,6 +77,27 @@ class StreamStats:
     def fps(self) -> float:
         """Throughput of the frames actually rendered."""
         return self.rendered / self.total_s if self.total_s > 0 else 0.0
+
+
+def _take(ready: queue.Queue, done: object):
+    """The decode thread's next frame from `ready`, or None after its last
+    (`done`); an error of the thread is raised here. A frame that was not
+    there yet when asked for counts as a ``stream stalls``."""
+    stalled = ready.empty()
+    item = ready.get()
+    if isinstance(item, BaseException):
+        raise item
+    if item is done:
+        return None
+    if stalled:
+        profiling.count("stream stalls")
+    return item
+
+
+def _drain(pending: transfer.Pending):
+    """The oldest frame's download, waited for."""
+    with profiling.span("lfi.stream.drain"):
+        return pending.wait()
 
 
 class StreamingRenderer:
@@ -153,10 +191,17 @@ class StreamingRenderer:
 
     def _frames_cuda(self, frames: Iterable[np.ndarray]) -> Iterator[torch.Tensor]:
         """Planar device frames: a decode thread copies each host frame into
-        one of prefetch + 1 pinned buffers, the upload stream copies it to
-        the device, and the current stream waits for that copy's event
-        before the planar copy. A buffer is refilled only after the event of
-        its last upload."""
+        one of prefetch + 1 pinned buffers and enqueues its copy to the
+        device on the upload stream at once; the current stream waits for
+        that copy's event before the planar copy. A buffer is refilled only
+        after the event of its last upload.
+
+        The upload is enqueued by the decode thread, not when the render
+        loop takes the frame: an all-in-focus frame's render waits on the
+        host for its own estimate (the filter's divisor, a host scalar
+        copied to the device), and an upload enqueued only then would sit
+        on that wait, one frame's copy a frame, instead of running under
+        the frames before it."""
         dev = self.device
         if self._upload is None:
             self._upload = torch.cuda.Stream(dev)
@@ -176,38 +221,47 @@ class StreamingRenderer:
                         return
                     if event is not None:
                         event.synchronize()
-                    f = torch.from_numpy(np.asarray(f))
-                    buf = buffers.get(slot)
-                    if buf is None or buf.shape != f.shape:
-                        buf = torch.empty(f.shape, dtype=torch.uint8, pin_memory=True)
-                        buffers[slot] = buf
-                    buf.copy_(f)  # on torch's intra-op threads, not one core
-                    ready.put(slot)
+                    with profiling.span("lfi.stream.feed"):
+                        f = torch.from_numpy(np.asarray(f))
+                        buf = buffers.get(slot)
+                        if buf is None or buf.shape != f.shape:
+                            buf = torch.empty(f.shape, dtype=torch.uint8, pin_memory=True)
+                            buffers[slot] = buf
+                        buf.copy_(f)  # on torch's intra-op threads, not one core
+                    event = torch.cuda.Event()
+                    with torch.cuda.stream(upload):
+                        raw = buf.to(dev, non_blocking=True)
+                        event.record(upload)
+                    ready.put((slot, raw, event))
+                    del raw
                 ready.put(done)
             except BaseException as e:  # forwarded to the consumer
                 ready.put(e)
 
+        def take() -> torch.Tensor | None:
+            with profiling.span("lfi.stream.take"):
+                item = _take(ready, done)
+                if item is None:
+                    return None
+                slot, raw, event = item
+                free.put((slot, event))
+                current = torch.cuda.current_stream(dev)
+                current.wait_event(event)
+                raw.record_stream(current)
+                return blend_torch.to_planar(raw)
+
         thread = threading.Thread(target=feeder, daemon=True)
         thread.start()
         try:
-            while True:
-                item = ready.get()
-                if isinstance(item, BaseException):
-                    raise item
-                if item is done:
-                    return
-                event = torch.cuda.Event()
-                with torch.cuda.stream(upload):
-                    raw = buffers[item].to(dev, non_blocking=True)
-                    event.record(upload)
-                free.put((item, event))
-                torch.cuda.current_stream(dev).wait_event(event)
-                raw.record_stream(torch.cuda.current_stream(dev))
-                yield blend_torch.to_planar(raw)
+            # no reference to a yielded frame stays here: the render loop
+            # frees it once rendered
+            yield from iter(take, None)
         finally:
             stop.set()
             free.put((0, None))  # wake a feeder waiting for a buffer
             thread.join()
+            while not ready.empty():  # frames uploaded and never taken
+                ready.get()
             upload.synchronize()  # the buffers serve the next stream
 
     def _frames_cpu(self, frames: Iterable[np.ndarray]) -> Iterator[torch.Tensor]:
@@ -218,19 +272,20 @@ class StreamingRenderer:
         def feeder():
             try:
                 for f in frames:
-                    ready.put(np.asarray(f))
+                    with profiling.span("lfi.stream.feed"):
+                        f = np.asarray(f)
+                    ready.put(f)
                 ready.put(done)
             except BaseException as e:  # forwarded to the consumer
                 ready.put(e)
 
+        def take() -> torch.Tensor | None:
+            with profiling.span("lfi.stream.take"):
+                f = _take(ready, done)
+                return None if f is None else blend_torch.to_planar(torch.from_numpy(f))
+
         threading.Thread(target=feeder, daemon=True).start()
-        while True:
-            item = ready.get()
-            if isinstance(item, BaseException):
-                raise item
-            if item is done:
-                return
-            yield blend_torch.to_planar(torch.from_numpy(item))
+        yield from iter(take, None)
 
     def render_stream(self, frames: Iterable[np.ndarray]) -> Iterator:
         """Yield [V, H, W, 3] uint8 view stacks, one per input frame -- or
@@ -241,15 +296,16 @@ class StreamingRenderer:
                   else self._frames_cpu)(frames)
         pending: list[transfer.Pending] = []
         for images in source:
-            out = self._render(images)
-            del images
-            views, maps = out if self.cfg.uses_focus_map else (out, None)
-            pending.append(self._download.start(views, maps))
-            del out, views, maps
+            with profiling.span("lfi.stream.frame"):
+                out = self._render(images)
+                del images
+                views, maps = out if self.cfg.uses_focus_map else (out, None)
+                pending.append(self._download.start(views, maps))
+                del out, views, maps
             if len(pending) > self.prefetch:
-                yield pending.pop(0).wait()
-        for p in pending:
-            yield p.wait()
+                yield _drain(pending.pop(0))
+        while pending:
+            yield _drain(pending.pop(0))
 
     def render_to_dir(
         self,

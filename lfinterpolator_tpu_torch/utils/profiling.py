@@ -13,7 +13,7 @@ repeats the same work.
 ``event_ms(fn)`` is the CUDA-event mean of back-to-back runs that the
 scripts time kernels with. ``count(key)`` adds one to the port's one table
 of counts (each kernel wrapper's launches, the capacity plan's free-memory
-readings, the downloads' row bands), which ``launch_counts()`` copies and
+readings, the downloads' row bands, a stream's stalls), which ``launch_counts()`` copies and
 ``reset_launch_counts()`` clears. This module is the port's bottom layer:
 it imports nothing of the package, and every layer above counts and marks
 its spans through it.
@@ -64,9 +64,19 @@ on the calling thread:
   lfi.quilt.download     ``render_quilt``: the wait until the caller holds
                          the canvas in host memory (an
                          ``lfi.download.wait`` inside)
+  lfi.stream.feed        ``StreamingRenderer``'s decode thread: one host
+                         frame into its pinned buffer
+  lfi.stream.take        the stream's render loop: the wait for the next
+                         frame (copied and its upload enqueued by the
+                         decode thread) and its planar copy enqueued
+  lfi.stream.frame       one streamed frame's render and download start
+                         (the stream's counterpart of ``lfi.interpolate``)
+  lfi.stream.drain       the wait for the oldest streamed frame's download
+                         (an ``lfi.download.wait`` inside)
 
 The pipeline's and the download's spans open wherever those layers run (a
-stream's frames and a mesh's blocks too); the others are the API's.
+stream's frames and a mesh's blocks too); the stream's four are
+``streaming.py``'s, the others the API's.
 """
 
 from __future__ import annotations
@@ -235,7 +245,7 @@ def trace(log_dir: str):
 _counts: collections.Counter = collections.Counter()
 #: The keys of that table that count something other than a kernel's
 #: launches.
-OTHER_COUNTS = ("capacity budget reads", "download bands")
+OTHER_COUNTS = ("capacity budget reads", "download bands", "stream stalls")
 _counts_lock = threading.Lock()
 
 def count(key: str) -> None:
@@ -249,10 +259,12 @@ def launch_counts() -> collections.Counter:
     wrapper, under the kernel's name (the names of ``chip_smoke.py``'s
     kernels line; an estimate counts once, under ``focus_estimate_<tap
     rule>``), ``capacity budget reads``, the capacity plan's readings of the
-    device's free memory (``core/capacity.py``), and ``download bands``, the
+    device's free memory (``core/capacity.py``), ``download bands``, the
     row bands of each download (``utils/transfer.py``; 1 for a download of
-    whole frames, on the CPU too). Plain-version calls are never counted as
-    launches. A key never counted reads 0."""
+    whole frames, on the CPU too), and ``stream stalls``, the streamed
+    frames that the render loop asked for before they were decoded
+    (``streaming.py``). Plain-version calls are never counted as launches.
+    A key never counted reads 0."""
     with _counts_lock:
         return collections.Counter(_counts)
 

@@ -9,6 +9,7 @@ import contextlib
 import json
 import pathlib
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ import torch
 from lfinterpolator_tpu_torch.api import Interpolator
 from lfinterpolator_tpu_torch.core.config import RenderConfig
 from lfinterpolator_tpu_torch.io import LightField
+from lfinterpolator_tpu_torch.streaming import StreamingRenderer
 from lfinterpolator_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -25,6 +27,7 @@ PACKAGE = pathlib.Path(__file__).resolve().parent.parent / "lfinterpolator_tpu_t
 API = {"lfi.params", "lfi.plan", "lfi.upload"}
 DOWNLOAD = {"lfi.download.start", "lfi.download.wait"}
 QUILT_HOST = {"lfi.quilt.hwc", "lfi.quilt.download"}
+STREAM = {"lfi.stream.feed", "lfi.stream.take", "lfi.stream.frame", "lfi.stream.drain"}
 #: Each render kind: the call, its top span and the spans inside it.
 KINDS = {
     "fixed": (lambda i: i.interpolate("0,0,1,1", focus=0.1, method="TEN", progress=False),
@@ -149,7 +152,8 @@ def test_every_span_the_port_names_starts_with_lfi():
                     and node.func.attr == "span" and node.args
                     and isinstance(node.args[0], ast.Constant)):
                 names.add(node.args[0].value)
-    assert names >= set().union(*(v[2] | {v[1]} for v in KINDS.values())) | {"lfi.estimate.flags"}
+    assert names >= set().union(*(v[2] | {v[1]} for v in KINDS.values())) | {
+        "lfi.estimate.flags"} | STREAM
     assert all(n.startswith("lfi.") and not n.startswith("lfibench.") for n in names), names
 
 
@@ -165,3 +169,72 @@ def test_trace_records_the_spans_of_every_thread(interp, tmp_path):
         assert not worker.is_alive()
     spans = _spans(tmp_path)
     assert {e["tid"] for e in spans if e["name"] == "lfi.interpolate"} == {worker.native_id}
+
+
+def _stream(frames: int = 2) -> list:
+    """An all-in-focus stream of a 4x4 grid of 24x40, every frame estimated;
+    the first frame is decoded 50 ms late, so the render loop asks for it
+    before it is there."""
+    rng = np.random.default_rng(29)
+    renderer = StreamingRenderer(4, 4, 40, 24, "0,0,1,1", device="cpu", prefetch=1,
+                                 config=RenderConfig(focus=0.1, focus_range=0.3,
+                                                     focus_map_views=16, focus_steps=8))
+
+    def decoded():
+        time.sleep(0.05)
+        for _ in range(frames):
+            yield rng.integers(0, 256, (16, 24, 40, 3), dtype=np.uint8)
+
+    return list(renderer.render_stream(decoded()))
+
+
+def test_a_stream_feeds_on_its_own_thread_and_renders_each_frame_in_a_span(tmp_path):
+    """The decode thread's ``lfi.stream.feed`` is on a thread of its own;
+    the render loop's ``lfi.stream.take``, ``lfi.stream.frame`` (holding
+    the frame's estimate, filter, blend and download start) and
+    ``lfi.stream.drain`` (holding the download's wait) are on the caller's,
+    one each a frame; the first frame, asked for before it was decoded,
+    counts as a ``stream stalls``."""
+    if profiling._all_threads_config() is None:
+        pytest.skip("this torch records the launching thread only")
+    profiling.reset_launch_counts()
+    with profiling.trace(str(tmp_path)):
+        out = _stream(2)
+    assert len(out) == 2 and all(maps.shape == (2, 24, 40) for _, maps in out)
+    assert 1 <= profiling.launch_counts()["stream stalls"] <= 2
+    assert "stream stalls" in profiling.OTHER_COUNTS
+    spans = sorted(_spans(tmp_path), key=lambda e: float(e["ts"]))
+    caller = threading.get_native_id()
+    by = {n: [e for e in spans if e["name"] == n] for n in STREAM}
+    assert [len(by[n]) for n in sorted(STREAM)] == [2, 2, 2, 3]  # drain, feed, frame, take
+    assert {e["tid"] for e in by["lfi.stream.feed"]} == {e["tid"] for e in by["lfi.stream.feed"][:1]}
+    assert by["lfi.stream.feed"][0]["tid"] != caller
+    for n in STREAM - {"lfi.stream.feed"}:
+        assert {e["tid"] for e in by[n]} == {caller}, n
+
+    def inside(name, outer):
+        return [e for e in spans if e["name"] == name and any(
+            float(o["ts"]) <= float(e["ts"]) and float(e["ts"]) + float(e["dur"])
+            <= float(o["ts"]) + float(o["dur"]) + 1e-3 for o in by[outer])]
+
+    for name in ("lfi.estimate", "lfi.filter", "lfi.blend", "lfi.download.start"):
+        assert len(inside(name, "lfi.stream.frame")) == 2, name
+    assert len(inside("lfi.download.wait", "lfi.stream.drain")) == 2
+    assert len([e for e in spans if e["name"].startswith("lfi.")]) == 9 + 4 * 2 + 2
+
+
+def test_without_a_profiler_a_stream_opens_no_span(tmp_path):
+    entered = []
+    original = torch.profiler.record_function
+
+    class Spy(original):
+        def __enter__(self):
+            entered.append(self.name)
+            return super().__enter__()
+
+    with contextlib.ExitStack() as stack:
+        stack.callback(setattr, torch.profiler, "record_function", original)
+        torch.profiler.record_function = Spy
+        assert len(_stream(2)) == 2
+        assert entered == []
+        assert profiling.span("lfi.stream.feed") is profiling.span("lfi.stream.take")
