@@ -25,7 +25,8 @@ view batches, each downloaded into pinned host memory while the next one
 renders (``_view_batched``). A one-pass frame on a card renders and
 downloads in row bands where its shape gives it several
 (``transfer.band_count``): each band's download overlaps the next band's
-blend (``_OnePass``). ``device="cuda"`` without a CUDA device raises;
+blend, and, all in focus with TEN, the next band's estimate
+(``_OnePass``). ``device="cuda"`` without a CUDA device raises;
 nothing runs on the CPU instead.
 
 With ``mesh=`` (``parallel.mesh.make_mesh``, after
@@ -164,11 +165,14 @@ class _OnePass:
     mesh). Called, it renders the frame on the device: -> (views [V, C, H,
     W], maps [2, H, W] or None). ``download`` renders it into host memory
     in its row `bands` (``transfer.frame_bands``), each downloaded while
-    the next renders."""
+    the next renders; with `focus_bands`, each band's rows of the raw map
+    are estimated just before the band blends, and the filter runs after
+    the last band."""
 
     blend: Callable  # (maps, r0, hb) -> views [V, C, hb, W]; hb None: the frame
     estimate: Callable | None  # () -> maps [2, H, W]; None for a fixed focus
     bands: list[tuple[int, int]]
+    focus_bands: Callable | None = None  # () -> pipeline.FocusBands; None: whole
 
     def __call__(self):
         maps = None if self.estimate is None else self.estimate()
@@ -177,6 +181,11 @@ class _OnePass:
     def download(self, downloader: transfer.Downloader):
         """-> (host views [V, H, W, C], host maps [2, H, W] or None),
         rendered and downloaded band by band (``Downloader.start_bands``)."""
+        if self.focus_bands is not None:
+            est = self.focus_bands()
+            return downloader.start_bands(
+                lambda r0, hb: self.blend(est.rows(r0, hb), r0, hb), self.bands,
+                est.finish).wait()
         maps = None if self.estimate is None else self.estimate()
         out = downloader.start_bands(functools.partial(self.blend, maps), self.bands,
                                      maps).wait()
@@ -336,8 +345,24 @@ class Interpolator:
                 return self._view_batched(weights, plan.view_batch,
                                           lambda rows: render(rows, maps)), maps
             return step
+        v, k = len(params.weights), len(params.focus_ids)
+        bands = self._bands(v, allfocus=True)
+        focus_bands = None
+        # TEN blends with the raw map alone, so each band can blend right
+        # after its rows are estimated, where the copy sets the frame's pace;
+        # the pyramid's refine pass takes the whole frame. The prepared
+        # estimate keeps its RGBx words through the blend, so it runs only
+        # where the plan's budget holds them too.
+        g, c, h, w = self.images.shape
+        if (method_key == "TEN" and params.pyramid is None and len(bands) > 1
+                and transfer.estimate_in_bands(g, v, c, h, w, k, cfg.focus_steps)
+                and plan.bytes_unbatched + 4 * k * h * w <= plan.budget):
+            def focus_bands() -> pipeline.FocusBands:
+                return pipeline.FocusBands(
+                    self.images, offsets, ids, tables, radius=params.radius,
+                    filter_radius=params.filter_radius, exact_taps=cfg.exact_focus_taps)
         return _OnePass(lambda maps, r0, hb: render(weights, maps, r0, hb), estimate,
-                        self._bands(len(params.weights), allfocus=True))
+                        bands, focus_bands)
 
     def _check_mesh(self, phases: dict[str, int], what: str, extra: int) -> None:
         """Raise ValueError with the per-rank arithmetic and
@@ -483,7 +508,11 @@ class Interpolator:
         maps go to the host as one copy, then each band of rows is blended
         and copied into its rows of the one pinned host array while the
         next band blends, so the copy starts after the first band, not
-        after the whole blend. A short blend (HCI's 512² frames), view
+        after the whole blend. A TEN all-in-focus frame without the
+        pyramid estimates each band's rows of its raw map just before it
+        blends them (TEN blends with the raw map alone), filters after the
+        last band and sends its maps last, so the copy starts after one
+        band's estimate, not the frame's. A short blend (HCI's 512² frames), view
         batches, a mesh, the CPU and `benchmark_runs > 0` download the
         whole frame after its render, as ``interpolate_batch`` and
         ``render_quilt`` always do; the host arrays are the same bytes

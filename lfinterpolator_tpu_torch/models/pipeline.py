@@ -22,7 +22,12 @@ Row blocks: ``render_fixed_focus``, ``estimate_focus`` and
 ``blend_all_focus`` take ``row_start`` and ``row_count`` and render only
 those rows of the frame (one rank's rows of a multi-GPU render,
 ``parallel/mesh.py``, which gathers the raw map between the estimate and
-the filter); the defaults render the frame.
+the filter); the defaults render the frame. ``FocusBands`` estimates a
+frame's raw map band by band on one prepared estimate, so that a TEN
+frame rendered in row bands (``api._OnePass``) blends each band right
+after its rows are estimated, and filters after the last. The estimate
+of a frame counts its row blocks as ``estimate bands``
+(``profiling.launch_counts``): 1 for a whole-frame estimate.
 
 PyTorch runs eagerly, so there is nothing to jit; shapes, focus and
 trajectory may change from call to call at no cost.
@@ -70,7 +75,9 @@ def estimate_focus(
     """The raw focus map of a block of rows -> [hb, W] uint8.
 
     `pyramid` (exact taps, the whole frame only) runs the approximate
-    coarse-to-fine estimate instead of the full sweep."""
+    coarse-to-fine estimate instead of the full sweep. Counts one
+    ``estimate bands``."""
+    profiling.count("estimate bands")
     selected, sel_offsets = images[focus_ids], offsets[focus_ids]
     if pyramid is None:
         return focus_estimate.focus_estimate(
@@ -105,6 +112,47 @@ def compute_focus_maps(
     with profiling.span("lfi.filter"):
         map1 = focus_torch.filter_focus_map(map0, filter_radius)
     return torch.stack([map0, map1])
+
+
+class FocusBands:
+    """A frame's focus maps estimated in row bands, in order, on one
+    prepared estimate (``focus_estimate.Estimate``: the focus views'
+    gather, RGBx words, tables and clean flags made once, in the first
+    band): ``rows(r0, hb)`` writes the raw map's rows [r0, r0 + hb) into
+    ``maps[0]`` (under ``lfi.estimate``, one ``estimate bands`` each) and
+    returns ``maps``; once the bands cover the frame, ``finish()`` filters
+    the whole raw map into ``maps[1]`` (under ``lfi.filter``) -> ``maps``
+    [2, H, W] (raw, filtered), the bytes of ``compute_focus_maps``.
+
+    A TEN blend reads only the raw map (``blend_all_focus``), so band k
+    blends as soon as its rows exist; the filter's window crosses the
+    bands, so it runs after the last. The exact sweep or the fast one,
+    never the pyramid (whose refine pass takes the whole frame)."""
+
+    def __init__(self, images, offsets, focus_ids, tables: FocusTables, *,
+                 radius: tuple[int, int], filter_radius: tuple[int, int],
+                 exact_taps: bool = True):
+        self._operands = (images, offsets, focus_ids, tables, radius, exact_taps)
+        self._filter_radius = filter_radius
+        self._estimate = None
+        self.maps = torch.empty((2, *images.shape[2:]), dtype=torch.uint8,
+                                device=images.device)
+
+    def rows(self, r0: int, hb: int) -> torch.Tensor:
+        with profiling.span("lfi.estimate"):
+            profiling.count("estimate bands")
+            if self._estimate is None:
+                images, offsets, ids, tables, radius, exact_taps = self._operands
+                self._estimate = focus_estimate.Estimate(
+                    images[ids], offsets[ids], tables, radius, exact_taps, out=self.maps[0])
+            self._estimate.rows(r0, hb)
+        return self.maps
+
+    def finish(self) -> torch.Tensor:
+        self._estimate = None  # the RGBx words go back to the allocator
+        with profiling.span("lfi.filter"):
+            self.maps[1] = focus_torch.filter_focus_map(self.maps[0], self._filter_radius)
+        return self.maps
 
 
 def blend_all_focus(

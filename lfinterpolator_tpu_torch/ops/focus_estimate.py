@@ -26,19 +26,28 @@ rows (the map pass their extended rows), with the frame's coordinates and
 the frame's clean flags sliced to the block, and the map is ``[hb, W]``,
 bit-equal to the same rows of the whole-frame estimate. The RGBx copy holds
 the full frame of the focus views. The defaults estimate the frame.
+``Estimate`` is one frame's estimate prepared once -- its RGBx words,
+operand tables and clean flags -- for any number of row blocks, each
+written straight into its rows of the frame's map: a TEN all-in-focus
+frame estimates its row bands one by one, each just before it blends
+them (``pipeline.FocusBands``). ``focus_estimate`` is one block on an
+``Estimate`` of its own. Whatever its blocks, an estimate counts once per
+frame, as ``focus_estimate_exact`` / ``_fast`` (``_pyramid`` for the
+refine pass); ``pipeline`` counts its blocks as ``estimate bands``.
 
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernels, or raises. No path falls back
 from one to the other.
 
-Scratch, allocated per call and alive only for the estimate: the K focus
-views as one interleaved RGBx ``uint32`` word per pixel (``rgbx``, a small
-kernel of the same source; ``4 * K * H * W`` bytes: 265 MB at K = 32,
-1080p), so that one 4-byte load serves a tap; the maps of one chunk of
+Scratch, alive as long as the ``Estimate`` (its last block, for a frame
+estimated in bands): the K focus views as one interleaved RGBx ``uint32``
+word per pixel (``rgbx``, a small kernel of the same source; ``4 * K * H *
+W`` bytes: 265 MB at K = 32, 1080p), so that one 4-byte load serves a tap,
+and the flags, ``S * (H + W)`` bytes; per block: the maps of one chunk of
 candidates (``map_chunk``: all of them while they fit
-``MAP_BYTES_PER_PIXEL * H * W`` bytes, 69 MB for 32 candidates at 1080p);
-the running best as one int32 per pixel when there is more than one chunk;
-and the flags, ``S * (H + W)`` bytes.
+``MAP_BYTES_PER_PIXEL * H * W`` bytes, 69 MB for 32 candidates at 1080p)
+and the running best as one int32 per pixel when there is more than one
+chunk.
 ``SCRATCH_BYTES_PER_PIXEL`` is what ``core/capacity.py`` counts for the
 maps and the running best.
 """
@@ -136,15 +145,56 @@ def map_chunk(h: int, w: int, radius: tuple[int, int], steps: int) -> int:
     return max(1, min(steps, MAP_BYTES_PER_PIXEL * h * w // plane))
 
 
-class _Passes:
-    """One estimate's operands and scratch on a CUDA device, and its two
-    passes over rows [r0, r0 + hb)."""
+class Estimate:
+    """One frame's estimate, prepared once for any of its row blocks.
+
+    Made once, on a CUDA device: the focus views' RGBx words (the planar
+    views are not kept) and the contiguous operand tables; and, for the
+    exact rule, the frame's clean flags, inside the first block, after its
+    first map pass is enqueued, so that their host work overlaps the
+    device's (``lfi.estimate.flags``). ``rows(r0, hb)`` runs the map pass
+    (over the block's rows and their 2·ry halo rows) and the argmin pass
+    for rows [r0, r0 + hb), the flags sliced to the block, and writes the
+    argmin pass's bytes straight into those rows of `out` ([H, W], the
+    frame's map), or into a new [hb, W] map without `out`. A block equals
+    the same rows of the whole-frame estimate, in any order of blocks. The
+    estimate counts once, as ``focus_estimate_<rule>``, when its first
+    block is launched, whatever the blocks and launches after it.
+
+    `flags` (bool row_clean [S, H], col_clean [S, W]) take the place of
+    ``focus_torch.clean_flags``'s; `pres` and its `plan` make it the
+    presence-predicated refine pass, which takes the whole frame only. On
+    a CPU tensor a block is the plain version's."""
 
     def __init__(self, selected, sel_offsets, tables: FocusTables, radius,
-                 r0: int = 0, hb: int | None = None):
-        lib = _build.load()
+                 exact_taps: bool = True, flags=None, pres=None, plan=None,
+                 out: torch.Tensor | None = None):
+        _check(selected, sel_offsets, tables, radius)
         k, _, h, w = selected.shape
         s = tables.candidates.shape[0]
+        self.device = dev = selected.device
+        if pres is not None:
+            if not exact_taps or plan is None:
+                raise ValueError("presence words need exact taps and their plan")
+            _check_pres(pres, plan, selected, s)
+            pres = pres.contiguous()
+        if flags is not None:
+            flags = _flag_bytes(flags, s, h, w, dev)
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"focus_estimate runs on cpu or cuda, not {dev}")
+        if out is not None and (tuple(out.shape) != (h, w) or out.dtype != torch.uint8
+                                or not out.is_contiguous() or out.device != dev):
+            raise ValueError(f"out must be a contiguous [{h}, {w}] uint8 tensor on {dev}, "
+                             f"got {tuple(out.shape)} {out.dtype}")
+        self.radius = (int(radius[0]), int(radius[1]))
+        self.dims = (k, h, w, s, *self.radius)
+        self.sel_offsets, self.tables, self.exact_taps = sel_offsets, tables, exact_taps
+        self.flags, self.pres, self.plan, self.out = flags, pres, plan, out
+        self.counted = False
+        if dev.type == "cpu":
+            self.selected = selected
+            return
+        lib = _build.load()
         if k > lib.lfi_focus_estimate_max_views():
             raise ValueError(
                 f"the kernel takes at most {lib.lfi_focus_estimate_max_views()} "
@@ -155,47 +205,100 @@ class _Passes:
                 f"the kernel takes at most {lib.lfi_focus_estimate_max_steps()} "
                 f"candidates, got {s}"
             )
-        self.device = dev = selected.device
-        rx, ry = int(radius[0]), int(radius[1])
-        hb = h - r0 if hb is None else hb
-        self.dims = (k, h, w, s, rx, ry, r0, hb)
         self.offsets = sel_offsets.contiguous()
         self.cands = tables.candidates.contiguous()
         self.cand_bytes = tables.candidate_bytes.contiguous()
         self.words = rgbx(selected)
-        self.chunk = map_chunk(hb, w, radius, s)
+
+    def _block_flags(self, r0: int, hb: int):
+        """The exact rule's flags of rows [r0, r0 + hb) as bytes: the
+        frame's, made on first use, sliced to the block (flags of the block
+        alone would be those of rows [0, hb))."""
+        _, h, w, s = self.dims[:4]
+        if self.flags is None:
+            with profiling.span("lfi.estimate.flags"):
+                self.flags = _flag_bytes(
+                    focus_torch.clean_flags(self.sel_offsets, self.tables, self.radius, h, w),
+                    s, h, w, self.device)
+        rows, cols = self.flags
+        return rows[:, r0:r0 + hb].contiguous(), cols
+
+    def rows(self, row_start: int = 0, row_count: int | None = None) -> torch.Tensor:
+        """The map of rows [row_start, row_start + row_count) -> [hb, W]
+        uint8: those rows of `out`, or a new map (the defaults: the
+        frame)."""
+        h, w = self.dims[1:3]
+        r0, hb = row_block(h, row_start, row_count)
+        if self.pres is not None and (r0, hb) != (0, h):
+            raise ValueError("the presence-predicated estimate takes the whole frame")
+        out = (torch.empty((hb, w), dtype=torch.uint8, device=self.device)
+               if self.out is None else self.out[r0:r0 + hb])
+        if self.device.type == "cpu":
+            if self.pres is not None:
+                out.copy_(focus_torch.estimate_presence(
+                    self.selected, self.sel_offsets, self.tables, self.radius, self.pres,
+                    self.plan))
+            else:
+                out.copy_(focus_estimate_reference(
+                    self.selected, self.sel_offsets, self.tables, self.radius,
+                    self.exact_taps, row_start=r0, row_count=hb))
+            return out
+        flags = (lambda: self._block_flags(r0, hb)) if self.exact_taps else None
+        _Passes(self, r0, hb, out).run(flags, self.pres, self.plan)
+        if not self.counted:
+            # once per estimate, whatever number of blocks and device
+            # launches it takes, and only once a block's were all taken
+            profiling.count("focus_estimate_pyramid" if self.pres is not None else
+                            "focus_estimate_exact" if self.exact_taps else
+                            "focus_estimate_fast")
+            self.counted = True
+        return out
+
+
+class _Passes:
+    """The scratch of one row block [r0, r0 + hb) of an ``Estimate`` on a
+    CUDA device, and the block's two passes into `out` [hb, W]."""
+
+    def __init__(self, est: Estimate, r0: int, hb: int, out: torch.Tensor | None = None):
+        k, h, w, s, rx, ry = est.dims
+        dev = est.device
+        self.est = est
+        self.dims = (k, h, w, s, rx, ry, r0, hb)
+        self.chunk = map_chunk(hb, w, (rx, ry), s)
         self.maps = torch.empty((self.chunk, hb + 2 * ry, w + 2 * rx),
                                 dtype=torch.uint8, device=dev)
         self.best = (torch.empty((hb, w), dtype=torch.int32, device=dev)
                      if self.chunk < s else None)
-        self.out = torch.empty((hb, w), dtype=torch.uint8, device=dev)
+        self.out = torch.empty((hb, w), dtype=torch.uint8, device=dev) if out is None else out
 
     def map_pass(self, c0: int, n: int) -> None:
         """The maps of candidates [c0, c0 + n) into ``self.maps[:n]``."""
         k, h, w, _, rx, ry, r0, hb = self.dims
-        _build.launch("lfi_focus_cheby_map", self.device, self.words.data_ptr(),
-                      self.offsets.data_ptr(), self.cands.data_ptr() + 4 * c0,
+        est = self.est
+        _build.launch("lfi_focus_cheby_map", est.device, est.words.data_ptr(),
+                      est.offsets.data_ptr(), est.cands.data_ptr() + 4 * c0,
                       self.maps.data_ptr(), k, h, w, n, rx, ry, r0, hb)
 
     def argmin_pass(self, c0: int, n: int, flags=None, pres=None, plan=None) -> None:
         """Candidates [c0, c0 + n) against each pixel's running best; the
         exact rule with `flags` = (row_clean, col_clean), else the fast."""
+        est = self.est
         rows, cols = (f.data_ptr() for f in flags) if flags is not None else (None, None)
-        head = (self.words.data_ptr(), self.offsets.data_ptr(), self.cands.data_ptr(),
-                self.cand_bytes.data_ptr(), self.maps.data_ptr(), rows, cols,
+        head = (est.words.data_ptr(), est.offsets.data_ptr(), est.cands.data_ptr(),
+                est.cand_bytes.data_ptr(), self.maps.data_ptr(), rows, cols,
                 None if self.best is None else self.best.data_ptr())
         if pres is None:
-            _build.launch("lfi_focus_estimate", self.device, *head,
+            _build.launch("lfi_focus_estimate", est.device, *head,
                           self.out.data_ptr(), *self.dims, c0, n)
         else:
-            _build.launch("lfi_focus_estimate_pres", self.device, *head,
+            _build.launch("lfi_focus_estimate_pres", est.device, *head,
                           pres.data_ptr(), self.out.data_ptr(), *self.dims[:6], c0, n,
                           plan.tb, plan.wco, plan.sc, plan.nb, plan.n_wc, pres.shape[2])
 
     def run(self, flags=None, pres=None, plan=None) -> torch.Tensor:
-        """Every chunk's two passes -> the map. `flags` may be a callable
-        that makes them: it runs after the first map pass is enqueued, so
-        its host work overlaps the device's."""
+        """Every chunk's two passes -> the block's map. `flags` may be a
+        callable that makes them: it runs after the first map pass is
+        enqueued, so its host work overlaps the device's."""
         s = self.dims[3]
         for c0 in range(0, s, self.chunk):
             n = min(self.chunk, s - c0)
@@ -232,12 +335,13 @@ def focus_estimate(
     row_count: int | None = None,
 ) -> torch.Tensor:
     """Focus map of rows [row_start, row_start + row_count) -> [hb, W]
-    uint8 (kernels on CUDA tensors; the defaults: the frame).
+    uint8 (kernels on CUDA tensors; the defaults: the frame), on an
+    ``Estimate`` of its own.
 
     With `pres` (and its `plan`), the exact-taps search over each block's
     present candidates only: the pyramid's refine pass."""
-    return _estimate(selected, sel_offsets, tables, radius, exact_taps, pres, plan,
-                     row_start=row_start, row_count=row_count)
+    return Estimate(selected, sel_offsets, tables, radius, exact_taps, None, pres,
+                    plan).rows(row_start, row_count)
 
 
 def focus_estimate_flagged(
@@ -253,48 +357,7 @@ def focus_estimate_flagged(
     ``focus_torch.clean_flags``'s. The map is the same as long as `flags`
     mark clean nothing that those do not; all False runs the nine-tap loop
     for every (candidate, pixel) pair. For tests and timings."""
-    return _estimate(selected, sel_offsets, tables, radius, True, pres, plan, flags)
-
-
-def _estimate(selected, sel_offsets, tables, radius, exact_taps, pres, plan,
-              flags=None, row_start=0, row_count=None) -> torch.Tensor:
-    _check(selected, sel_offsets, tables, radius)
-    s = tables.candidates.shape[0]
-    h, w = selected.shape[2:]
-    r0, hb = row_block(h, row_start, row_count)
-    if pres is not None:
-        if not exact_taps or plan is None:
-            raise ValueError("presence words need exact taps and their plan")
-        if (r0, hb) != (0, h):
-            raise ValueError("the presence-predicated estimate takes the whole frame")
-        _check_pres(pres, plan, selected, s)
-    if flags is not None:
-        flags = _flag_bytes(flags, s, hb, w, selected.device)
-    if selected.device.type == "cpu":
-        if pres is not None:
-            return focus_torch.estimate_presence(
-                selected, sel_offsets, tables, radius, pres, plan)
-        return focus_estimate_reference(
-            selected, sel_offsets, tables, radius, exact_taps, row_start=r0,
-            row_count=hb)
-    if selected.device.type != "cuda":
-        raise ValueError(f"focus_estimate runs on cpu or cuda, not {selected.device}")
-
-    passes = _Passes(selected, sel_offsets, tables, radius, r0, hb)
-    if exact_taps and flags is None:
-        def flags():
-            # the frame's flags, sliced to the block: flags of the block
-            # alone would be those of rows [0, hb)
-            with profiling.span("lfi.estimate.flags"):
-                rows, cols = focus_torch.clean_flags(sel_offsets, tables, radius, h, w)
-                return _flag_bytes((rows[:, r0:r0 + hb], cols), s, hb, w,
-                                   selected.device)
-    out = passes.run(flags, None if pres is None else pres.contiguous(), plan)
-    # once per estimate, whatever number of device launches that was, and
-    # only when every one of them was taken
-    profiling.count("focus_estimate_pyramid" if pres is not None else
-                    "focus_estimate_exact" if exact_taps else "focus_estimate_fast")
-    return out
+    return Estimate(selected, sel_offsets, tables, radius, True, flags, pres, plan).rows()
 
 
 def cheby_maps(
@@ -315,7 +378,7 @@ def cheby_maps(
                             for f in tables.candidates])
     if selected.device.type != "cuda":
         raise ValueError(f"cheby_maps runs on cpu or cuda, not {selected.device}")
-    passes = _Passes(selected, sel_offsets, tables, radius, r0, hb)
+    passes = _Passes(Estimate(selected, sel_offsets, tables, radius), r0, hb)
     out = []
     for c0 in range(0, passes.dims[3], passes.chunk):
         n = min(passes.chunk, passes.dims[3] - c0)
@@ -341,7 +404,7 @@ def pass_times(selected, sel_offsets, tables: FocusTables, radius,
         return profiling.event_ms(fn, runs)
 
     with torch.cuda.device(selected.device):  # event_ms times the current device
-        passes = _Passes(selected, sel_offsets, tables, radius)
+        passes = _Passes(Estimate(selected, sel_offsets, tables, radius), 0, h)
         n = passes.chunk
         out = {"chunk": n, "steps": s,
                "rgbx_ms": ms(lambda: rgbx(selected)),

@@ -13,7 +13,8 @@ repeats the same work.
 ``event_ms(fn)`` is the CUDA-event mean of back-to-back runs that the
 scripts time kernels with. ``count(key)`` adds one to the port's one table
 of counts (each kernel wrapper's launches, the capacity plan's free-memory
-readings, the downloads' row bands, a stream's stalls), which ``launch_counts()`` copies and
+readings, the downloads' and the estimates' row bands, a stream's
+stalls), which ``launch_counts()`` copies and
 ``reset_launch_counts()`` clears. This module is the port's bottom layer:
 it imports nothing of the package, and every layer above counts and marks
 its spans through it.
@@ -43,10 +44,12 @@ on the calling thread:
                          does not serve (at most about one a second)
   lfi.upload             the fp16 check of the weights and the small uploads
                          (``state.upload_params``, ``state.upload_allfocus``)
-  lfi.estimate           the focus estimate (``pipeline.compute_focus_maps``)
+  lfi.estimate           the focus estimate (``pipeline.compute_focus_maps``),
+                         or one band's rows of it (``pipeline.FocusBands``)
   lfi.estimate.flags     the exact rule's clean flags, in torch ops, inside
-                         the estimate's kernels (CUDA only)
-  lfi.filter             the focus map's box filter
+                         the estimate's kernels (CUDA only; once a frame)
+  lfi.filter             the focus map's box filter (a banded TEN frame's
+                         after its last band)
   lfi.blend              a blend launch (each view batch's; a fused
                          quilt's ``quilt.quilt_blend``)
   lfi.download.start     ``transfer.Downloader.start``: the [N, C, H, W] ->
@@ -245,7 +248,8 @@ def trace(log_dir: str):
 _counts: collections.Counter = collections.Counter()
 #: The keys of that table that count something other than a kernel's
 #: launches.
-OTHER_COUNTS = ("capacity budget reads", "download bands", "stream stalls")
+OTHER_COUNTS = ("capacity budget reads", "download bands", "estimate bands",
+                "stream stalls")
 _counts_lock = threading.Lock()
 
 def count(key: str) -> None:
@@ -261,7 +265,9 @@ def launch_counts() -> collections.Counter:
     rule>``), ``capacity budget reads``, the capacity plan's readings of the
     device's free memory (``core/capacity.py``), ``download bands``, the
     row bands of each download (``utils/transfer.py``; 1 for a download of
-    whole frames, on the CPU too), and ``stream stalls``, the streamed
+    whole frames, on the CPU too), ``estimate bands``, the row blocks each
+    estimate of a focus map ran in (``models/pipeline.py``; 1 for a
+    whole-frame estimate, on the CPU too), and ``stream stalls``, the streamed
     frames that the render loop asked for before they were decoded
     (``streaming.py``). Plain-version calls are never counted as launches.
     A key never counted reads 0."""

@@ -15,7 +15,12 @@ blended, copied to HWC on the caller's stream and, after an event, copied
 on the side stream into its rows of the one pinned ``[V, H, W, C]`` array
 (one 2-D copy for all V views, ``lfi_copy_rows_to_host``) while the next
 band blends. The copy of the frame then starts after its first band, not
-after its whole blend. A frame whose blend and HWC copy are short against
+after its whole blend. A TEN all-in-focus frame (``api._OnePass``) also
+estimates each band's rows of its raw map just before it blends them
+(``pipeline.FocusBands``), so the copy starts after one band's estimate,
+not the frame's; its filter runs after the last band, beside that band's
+copy, and its maps go last. It does so where the copy, not the SMs, sets
+the frame's pace (``estimate_in_bands``). A frame whose blend and HWC copy are short against
 the fixed cost of a band (``band_count`` is 1: HCI's 512² frames) is
 downloaded whole, by ``start``, as are view batches, the stream's frames,
 a mesh's gathered views and everything on the CPU. So is a quilt's canvas
@@ -41,6 +46,7 @@ tensor ``start`` converts at once and ``wait`` returns the arrays.
 from __future__ import annotations
 
 import math
+from collections.abc import Callable
 
 import torch
 
@@ -61,6 +67,10 @@ COPY_BYTES_PER_S = 55e9
 BAND_S = 0.2e-3
 BAND_PASS_S = 0.01e-3
 MAX_BANDS = 8
+#: ... and for ``estimate_in_bands``, the exact estimate's seconds per
+#: candidate, focus view and pixel (an H100: 4.4 ms for 32 x 32 at 1080p,
+#: 1.7 ms at 1024², PERF.md).
+ESTIMATE_S = 2.1e-12
 #: The largest pitch a 2-D copy takes (``cudaDevAttrMaxPitch``).
 MAX_PITCH = 2**31 - 1
 
@@ -92,6 +102,23 @@ def band_count(g: int, passes: int, v: int, c: int, h: int, w: int, *,
     # the least of overlap / n + (n - 1) * band lies at sqrt(overlap / band)
     n = min((best, best + 1), key=lambda k: overlap / k + (k - 1) * band)
     return max(1, min(n, MAX_BANDS, h))
+
+
+def estimate_in_bands(g: int, v: int, c: int, h: int, w: int, k: int, steps: int) -> bool:
+    """Whether a TEN all-in-focus frame of `v` views [c, h, w] from `g`
+    images, rendered in bands, estimates its raw map band by band (`k`
+    focus views, `steps` candidates): where the frame's copy to the host
+    outlasts all of its SM work (estimate, blend and HWC copy), so that the
+    later bands' estimates run under the copy. Where the SMs set the pace,
+    bands would only add up the argmin pass's tails: each launch ends in
+    the nine-tap loops of the few blocks whose rows or columns are dirty,
+    about 0.5 ms on an H100 whatever the band's height (the 17x17 cell's
+    frame: 0.87 ms in one launch, 2.2 ms in four; PERF.md)."""
+    staged = (g + 15) // 16 * 16
+    frame = v * h * w * c
+    sm = ((ESTIMATE_S * steps * k + BLEND_S_ALLFOCUS * staged * v) * h * w
+          + frame / HWC_BYTES_PER_S)
+    return sm < frame / COPY_BYTES_PER_S
 
 
 def row_bands(h: int, n: int) -> list[tuple[int, int]]:
@@ -182,26 +209,31 @@ class Downloader:
             return Pending(tensors, host, event)
 
     def start_bands(self, render, bands: list[tuple[int, int]],
-                    maps: torch.Tensor | None = None,
+                    maps: torch.Tensor | Callable[[], torch.Tensor] | None = None,
                     out: torch.Tensor | None = None) -> Pending:
         """Render and download a frame in row `bands` ([(r0, hb)] covering
         its rows in order, ``row_bands``): ``render(r0, hb)`` -> the views of
         rows [r0, r0 + hb), [V, C, hb, W] uint8, each called after the last
-        band's download is enqueued. `maps` (rendered already) go first, as
-        one copy. The views land in `out` ([V, H, W, C] from ``host_empty``)
-        or a new host tensor."""
+        band's download is enqueued. `maps` rendered already go first, as
+        one copy; a callable `maps` is called after the last band's download
+        is enqueued, and the maps it returns go last. The views land in
+        `out` ([V, H, W, C] from ``host_empty``) or a new host tensor."""
         cuda = self.device.type == "cuda"
         h = sum(hb for _, hb in bands)
-        held, host_maps = [], None
-        if maps is not None:
+        held = []
+
+        def send(maps: torch.Tensor) -> torch.Tensor:
             with profiling.span("lfi.download.start"):
-                host_maps = host_empty(maps.shape, self.device)
+                host = host_empty(maps.shape, self.device)
                 if cuda:
                     held.append(maps)
                     with torch.cuda.stream(self._side()):
-                        host_maps.copy_(maps, non_blocking=True)
+                        host.copy_(maps, non_blocking=True)
                 else:
-                    host_maps.copy_(maps)
+                    host.copy_(maps)
+            return host
+
+        host_maps = None if maps is None or callable(maps) else send(maps)
         for r0, hb in bands:
             band = render(r0, hb)
             with profiling.span("lfi.download.start"):
@@ -223,6 +255,8 @@ class Downloader:
                     _build.launch("lfi_copy_rows_to_host", self.device,
                                   out.data_ptr() + r0 * w * c, h * w * c,
                                   hwc.data_ptr(), hb * w * c, hb * w * c, v)
+        if callable(maps):
+            host_maps = send(maps())
         event = None
         if cuda:
             event = torch.cuda.Event()
